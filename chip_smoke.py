@@ -4,16 +4,26 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds both hand-written CUDA kernels from street_gaussians_torch/csrc;
-3. holds each kernel against its plain PyTorch version on the card, on a
-   random ragged case and on the bench frame's own inputs;
+2. builds the four hand-written CUDA kernels from
+   street_gaussians_torch/csrc (one nvcc each, all started together);
+3. holds each forward kernel against its plain PyTorch version on the
+   card, on a random ragged case and on the bench frame's own inputs,
+   and the whole serving path on a small scene against the CPU path;
 4. serves the bench scene (1600x1064, 220k background points grown x3 =
    661,248 rows, 4 actors, 1024 sky cubemap) through serve.render_views:
    one warm-up view, then 8 timed views, which must be finite, drop no
-   instance and go through both kernels (launch counters);
-5. times each kernel, its plain version and a one-call PyTorch
+   instance and go through both forward kernels (launch counters);
+5. trains: holds the two backward kernels against their plain versions
+   on a random case and on a bench train step's own inputs; runs two
+   train steps of a small scene on the card and on the CPU with the same
+   draws (gradients and parameters within the CPU tests' tolerances);
+   trains the bench cell (train.bench_train_cell), 3 warm-up steps and
+   10 timed steps, which must be finite, drop no instance, go through
+   all four kernels and repeat bit for bit; then densify, reset and one
+   more step;
+6. times each kernel, its plain version and a one-call PyTorch
    yardstick, computes its bound, and prints one `kernels` JSON line;
-6. prints {"ok": true, "device": {...}} as the last line.
+7. prints {"ok": true, "device": {...}} as the last line.
 
 Any failure raises (exit code != 0). Without CUDA, or without the rest
 of the repository beside it, it fails before printing a result.
@@ -44,6 +54,59 @@ B_TOL = 1e-5
 B_FLIP_FRACTION = 1e-5
 B_FLIP_TOL = 1e-2
 VIEWS = 8
+TRAIN_WARMUP = 3
+TRAIN_STEPS = 10
+# the blend backward against its plain version: each gradient row scaled
+# by its largest |plain value|. The two differ in the order of their sums
+# (and the plain version's prefix sums are parallel scans on the card);
+# where that order flips which Gaussian stops a pixel (B_FLIP_FRACTION
+# above), the lanes of that pixel's Gaussians move by up to one pixel's
+# contribution: at most BWD_FLIP_LANES of the live lanes beyond
+# BWD_ATOL_SCALED, none beyond BWD_FLIP_TOL
+BWD_ATOL_SCALED = 1e-4
+BWD_FLIP_LANES = 1e-3
+BWD_FLIP_TOL = 3e-2
+# segment sums against the plain version (index_add_, atomic order on
+# the card): |d| <= SEG_RTOL * (sum of the segment's |rows|), the f32
+# rounding of a sum in another order
+SEG_RTOL = 1e-5
+# whole-step gradients and parameters, card against CPU: the rules of
+# tests/test_torch_train.py (see grads_close and params_close)
+GRAD_ATOL_SCALED = 1e-4
+GRAD_ATOL_LOOSE = 1e-3
+LOOSE_GRAD_ROWS = 0.03
+FLIP_ROWS = 0.01
+
+
+def _row_max(a):
+    a = np.abs(np.asarray(a))
+    return a.reshape(a.shape[0], -1).max(axis=1) if a.ndim else a.reshape(1)
+
+
+def grads_close(got, want, name):
+    """Gradients of a whole render: scaled by the leaf's largest |want|,
+    within GRAD_ATOL_SCALED except at most LOOSE_GRAD_ROWS of the rows,
+    which stay within GRAD_ATOL_LOOSE (sum orders, see
+    tests/test_torch_train.py)."""
+    want = np.asarray(want)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    d = _row_max((np.asarray(got) - want) / scale)
+    off = (d > GRAD_ATOL_SCALED).mean()
+    if off > LOOSE_GRAD_ROWS or d.max() > GRAD_ATOL_LOOSE:
+        raise AssertionError(f"{name}: {off:.2%} of rows beyond {GRAD_ATOL_SCALED}, max {d.max():.3e}")
+
+
+def params_close(got, want, grad_ref, lr, steps, name):
+    """Parameters after `steps` Adam steps of learning rate <= lr: rows
+    whose first gradient is >= 1% of the leaf's largest within 2% of
+    lr per step except at most FLIP_ROWS of them; every row within 2 lr
+    per step (a gradient within noise of 0 may take either sign)."""
+    d = _row_max(np.asarray(got) - np.asarray(want))
+    g = _row_max(grad_ref)
+    sig = g >= 0.01 * g.max()
+    tight = 0.02 * lr * steps + 1e-6
+    if (d[sig] > tight).mean() > FLIP_ROWS or d.max() > 2 * lr * steps + 1e-6:
+        raise AssertionError(f"{name}: {(d[sig] > tight).mean():.2%} of rows beyond {tight}, max {d.max():.3e}")
 
 
 def log(*args):
@@ -80,6 +143,49 @@ def compare_blend(got: torch.Tensor, ref: torch.Tensor, F: int, what: str) -> fl
         raise AssertionError(f"{what}: non-finite kernel output")
     if n_off > max(1, B_FLIP_FRACTION * n_pix) or max_err > B_FLIP_TOL * feat_scale:
         raise AssertionError(f"{what}: kernel disagrees with its plain version")
+    return max_err
+
+
+def compare_blend_bwd(got: torch.Tensor, ref: torch.Tensor, live: torch.Tensor, F: int, what: str) -> float:
+    """The blend backward against its plain version (see BWD_ATOL_SCALED);
+    returns the max abs error."""
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite kernel output")
+    rows = 6 + F + 2
+    g = got[:, :rows].transpose(0, 1).reshape(rows, -1)[:, live]
+    r = ref[:, :rows].transpose(0, 1).reshape(rows, -1)[:, live]
+    d = (g - r).abs() / r.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+    off = int((d > BWD_ATOL_SCALED).any(dim=0).sum())
+    n = int(live.sum())
+    max_err = float((got - ref).abs().max())
+    log(f"[check] {what}: max_abs_err {max_err:.3e}; max scaled err {float(d.max()):.3e}; "
+        f"lanes beyond {BWD_ATOL_SCALED} scaled: {off} of {n}")
+    if off > max(1, BWD_FLIP_LANES * n) or float(d.max()) > BWD_FLIP_TOL:
+        raise AssertionError(f"{what}: backward kernel disagrees with its plain version")
+    if (got[:, rows:] != 0).any() or (got.transpose(0, 1).reshape(got.shape[1], -1)[:, ~live] != 0).any():
+        raise AssertionError(f"{what}: backward kernel wrote outside the live lanes")
+    return max_err
+
+
+def live_lanes(payload, tile_start, tile_count) -> torch.Tensor:
+    """[NB+1 x 128] bool: the slots some tile's run covers."""
+    n = payload.shape[0] * 128
+    delta = torch.zeros(n + 1, dtype=torch.int32, device=payload.device)
+    s = tile_start.long()
+    e = s + tile_count.long()
+    delta.index_add_(0, s, torch.ones_like(tile_start))
+    delta.index_add_(0, e, -torch.ones_like(tile_start))
+    return torch.cumsum(delta, 0)[:n] > 0
+
+
+def compare_segsum(got, ref, abs_sum, what: str) -> float:
+    """Segment sums against the plain version (see SEG_RTOL)."""
+    d = (got - ref).abs()
+    bad = int((d > SEG_RTOL * abs_sum + 1e-30).sum())
+    max_err = float(d.max())
+    log(f"[check] {what}: max_abs_err {max_err:.3e}; sums beyond {SEG_RTOL} x sum|rows|: {bad} of {d.numel()}")
+    if bad or not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: segment_rowsum kernel disagrees with its plain version")
     return max_err
 
 
@@ -152,8 +258,8 @@ def main() -> int:
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    built = _build.build(["fill", "tile_blend"])
-    log(f"[build] {time.perf_counter() - t0:.2f} s wall for both kernels")
+    built = _build.build(["fill", "tile_blend", "tile_blend_bwd", "segsum"])
+    log(f"[build] {time.perf_counter() - t0:.2f} s wall for the four kernels")
     for name, info in built.items():
         ptxas = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "Compiling" in ln]
         log(f"[build] {name}.cu {info['seconds']:.2f} s; " + " | ".join(ptxas))
@@ -241,6 +347,7 @@ def main() -> int:
         view_ms.append(e0.elapsed_time(e1))
     launches = {"expand_runs": fill.expand_runs.launches,
                 "tile_blend_instances": tile_raster2.tile_blend_instances.launches}
+    serve_launches = dict(launches)
     peak = torch.cuda.max_memory_allocated(dev)
     for i, out in enumerate(outs):
         for k in ("rgb", "depth", "acc", "T"):
@@ -258,7 +365,12 @@ def main() -> int:
         f"(min {min(view_ms):.3f}, max {max(view_ms):.3f}); peak memory {peak / 2**30:.3f} GiB; "
         f"launches {launches}")
 
-    # ---- 5. kernel times, plain times, yardstick, bounds ----
+    # ---- 5. train ----
+    del outs, small
+    torch.cuda.empty_cache()
+    t = train_phase(dev)
+
+    # ---- 6. kernel times, plain times, yardstick, bounds ----
     with torch.no_grad():
         ends = torch.cat([ex.offs[1:], ex.total.reshape(1)])
         cnt = ends - ex.offs
@@ -278,24 +390,24 @@ def main() -> int:
     # pixel evaluates, 9 + 2F more for every pair it blends
     b_ops = 17 * evaluated + (9 + 2 * F) * blended
 
-    def bound(nbytes, ops):
-        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-        return (tb, "bytes") if tb >= to else (to, "operations")
-
     kernels = []
-    for name, src, rep, n, err, ms, plain, lib, (bms, by) in (
+    for name, src, rep, n, err, ms, plain, lib, (bms, by), extra in (
         ("expand_runs", "street_gaussians_torch/csrc/fill.cu",
-         "street_gaussians_tpu/ops/fill.py:55", launches["expand_runs"], err_a,
-         a_ms, a_plain, a_lib, bound(a_bytes, a_ops)),
+         "street_gaussians_tpu/ops/fill.py:55", t["launches"]["expand_runs"], err_a,
+         a_ms, a_plain, a_lib, bound(a_bytes, a_ops), {"serve_launches": serve_launches["expand_runs"]}),
         ("tile_blend_instances", "street_gaussians_torch/csrc/tile_blend.cu",
-         "street_gaussians_tpu/ops/tile_raster2.py:318", launches["tile_blend_instances"], err_b,
-         b_ms, b_plain, None, bound(b_bytes, b_ops)),
+         "street_gaussians_tpu/ops/tile_raster2.py:318", t["launches"]["tile_blend_instances"], err_b,
+         b_ms, b_plain, None, bound(b_bytes, b_ops),
+         {"serve_launches": serve_launches["tile_blend_instances"]}),
+        *t["kernels"],
     ):
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": n, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
-                        "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": lib})
+                        "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": lib,
+                        "launches_per_step": n / TRAIN_STEPS, **extra})
         log(f"[kernel] {name}: {ms:.4f} ms (plain {plain:.4f} ms, library "
-            f"{'n/a' if lib is None else f'{lib:.4f} ms'}), bound {bms:.4f} ms by {by}")
+            f"{'n/a' if lib is None else f'{lib:.4f} ms'}), bound {bms:.4f} ms by {by}; "
+            f"{n} launches in {TRAIN_STEPS} train steps")
     log(f"[kernel] bench-frame counts: expand_runs bytes {a_bytes}, compares {a_ops}; "
         f"tile_blend bytes {b_bytes}, f32 ops {b_ops}")
 
@@ -304,6 +416,288 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def bound(nbytes, ops):
+    """(least ms for the work, "bytes" or "operations")."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def _numpy(tree):
+    return {k: v.detach().cpu().numpy() for k, v in tree.items()}
+
+
+class CallRecorder:
+    """Stands in for a kernel wrapper under its own name in `modules`
+    (where its callers, and the wrapper's own launch count, look it up):
+    records each call's arguments and forwards `launches` to the
+    wrapper."""
+
+    def __init__(self, fn, modules):
+        self.fn, self.modules, self.calls = fn, modules, []
+        self.__name__ = fn.__name__
+        for m in modules:
+            setattr(m, fn.__name__, self)
+
+    def __call__(self, *args, **kwargs):
+        self.calls.append((args, kwargs))
+        return self.fn(*args, **kwargs)
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+    def restore(self):
+        for m in self.modules:
+            setattr(m, self.fn.__name__, self.fn)
+
+
+def small_step_check(dev):
+    """Two train steps of a small scene (64x96, 600 background points, 2
+    actors flipped with probability 0.5, a 16-texel sky) on the card
+    and on the CPU from the same state, ground truth and draws: the
+    first step's gradients, then the parameters, moments and statistics
+    after two steps, card against CPU."""
+    import dataclasses
+
+    from street_gaussians_torch import train
+    from street_gaussians_torch.train_lib import Draws, flatten_params
+
+    # random rotations and anisotropic scales, as in the CPU tests: with
+    # the synthetic scene's identity rotations and isotropic scales the
+    # rotation gradient is rounding noise and Adam follows its sign
+    devices = (torch.device("cpu"), dev)
+    cells = [train.bench_train_cell(d, seed=3, sky_resolution=16, num_bkgd=600, num_actors=2, H=64, W=96)
+             for d in devices]
+    g0, aux0 = cells[0].state.params.gaussians, cells[0].state.aux
+    rng = np.random.default_rng(8)
+    C = g0.xyz.shape[0]
+    alive = aux0.alive.numpy()[:, None]
+    rot = np.where(alive, rng.normal(size=(C, 4)), g0.rot.numpy()).astype(np.float32)
+    log_scale = (g0.log_scale.numpy() + rng.uniform(-0.4, 0.4, (C, 3)) * alive).astype(np.float32)
+    gt = cells[0].gt
+    gen = torch.Generator().manual_seed(7)
+    H, W = cells[0].frame.cam.H, cells[0].frame.cam.W
+    draws = [Draws((torch.rand(C, generator=gen) < 0.5) & (aux0.model_id > 0),
+                   torch.rand((H, W, 2), generator=gen) - 0.5) for _ in range(2)]
+    res = []
+    for d, cell in zip(devices, cells):
+        g = dataclasses.replace(cell.state.params.gaussians, rot=torch.as_tensor(rot, device=d),
+                                log_scale=torch.as_tensor(log_scale, device=d))
+        state = dataclasses.replace(cell.state, params=dataclasses.replace(cell.state.params, gaussians=g))
+        cell_gt = dataclasses.replace(gt, **{f.name: getattr(gt, f.name).to(d) for f in dataclasses.fields(gt)})
+        dr = [Draws(x.flip.to(d), x.sky_jitter.to(d)) for x in draws]
+        _, _, grads, _, _ = cell.step_fn.loss_and_grads(state, cell.frame, cell_gt, draws=dr[0])
+        losses = []
+        for i in range(2):
+            state, sc = cell.step_fn(state, cell.frame, cell_gt, draws=dr[i])
+            losses.append(float(sc["loss"]))
+        res.append(dict(grads=_numpy(grads), params=_numpy(flatten_params(state.params)),
+                        mu=_numpy(state.adam.mu), count=_numpy(state.adam.count), losses=losses,
+                        accum=state.aux.grad_accum.cpu().numpy(), denom=state.aux.denom.cpu().numpy()))
+    b, a = res
+    if not np.allclose(a["losses"], b["losses"], rtol=1e-5):
+        raise AssertionError(f"small step losses card {a['losses']} vs CPU {b['losses']}")
+    lr = {"gaussians.xyz": 0.00016 * 12.0, "gaussians.feat_dc": 0.0025, "gaussians.feat_rest": 0.0025 / 20,
+          "gaussians.log_scale": 0.005, "gaussians.rot": 0.001, "gaussians.opacity_logit": 0.05,
+          "sky.cubemap": 0.01}
+    for k in b["grads"]:
+        grads_close(a["grads"][k], b["grads"][k], f"small step grad {k}")
+        params_close(a["params"][k], b["params"][k], b["grads"][k], lr.get(k, 0.0), 2, f"small step {k}")
+        grads_close(a["mu"][k], b["mu"][k], f"small step mu {k}")
+        if not np.array_equal(a["count"][k], b["count"][k]):
+            raise AssertionError(f"small step count {k} differs")
+    grads_close(a["accum"], b["accum"], "small step grad_accum")
+    if not np.array_equal(a["denom"], b["denom"]):
+        raise AssertionError("small step denom differs")
+    log(f"[check] small train step (64x96, 2 actors, sky 16), 2 steps, card vs CPU: losses "
+        f"{a['losses']} vs {b['losses']}; gradients, parameters, moments and statistics within the "
+        f"CPU tests' tolerances")
+
+
+def train_phase(dev) -> dict:
+    from street_gaussians_torch import train
+    from street_gaussians_torch.models import sky_cubemap
+    from street_gaussians_torch.ops import fill, rasterize, segsum, tile_raster2
+    from street_gaussians_torch.train_lib import Draws, flatten_params
+
+    # ---- 5a. backward kernels on random inputs ----
+    case = random_blend_case(1, dev)
+    payload, starts, counts, F, gx, T = case
+    gen = torch.Generator().manual_seed(11)
+    gout = torch.randn((T, 256, F + 1), generator=gen).to(dev)
+    out = tile_raster2.tile_blend_instances(*case)
+    got = tile_raster2.tile_blend_bwd(payload, starts, counts, out, gout, F, gx, T)
+    ref = tile_raster2.tile_blend_bwd_plain(payload, starts, counts, out, gout, F, gx, T)
+    err_bwd = compare_blend_bwd(got, ref, live_lanes(payload, starts, counts), F,
+                                "tile_blend_bwd random ragged (1200 tiles)")
+    rng = np.random.default_rng(12)
+    keys = torch.as_tensor(np.sort(rng.integers(0, 50_000, 300_000)).astype(np.int32), device=dev)
+    d = torch.as_tensor(rng.normal(size=(12, keys.numel())).astype(np.float32), device=dev)
+    got = segsum.segment_rowsum(d, keys, num_segments=50_000)
+    ref = segsum.segment_rowsum_plain(d, keys, num_segments=50_000)
+    err_seg = compare_segsum(got, ref, segsum.segment_rowsum_plain(d.abs(), keys, num_segments=50_000),
+                             "segment_rowsum random (C=12, L=300000, N=50000)")
+
+    # ---- 5b. a small train step, card against CPU ----
+    small_step_check(dev)
+
+    # ---- 5c. the bench train cell ----
+    t0 = time.perf_counter()
+    cell = train.bench_train_cell(dev, seed=0)
+    torch.cuda.synchronize()
+    log(f"[train] bench cell: capacity {cell.scene.table.capacity} rows, {cell.frame.cam.W}x"
+        f"{cell.frame.cam.H}, set up in {time.perf_counter() - t0:.2f} s")
+    if cell.scene.table.capacity != 661_248:
+        raise AssertionError(f"bench train capacity {cell.scene.table.capacity} != 661248")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = cell.state
+    # the first warm-up step's own backward inputs, for 5f
+    bwd_rec = CallRecorder(tile_raster2.tile_blend_bwd, [tile_raster2])
+    seg_rec = CallRecorder(segsum.segment_rowsum, [rasterize, sky_cubemap])
+    for i in range(TRAIN_WARMUP):
+        t0 = time.perf_counter()
+        state, sc = train.run_step(cell, state, gen)
+        torch.cuda.synchronize()
+        log(f"[train] warm-up step {i}: {1e3 * (time.perf_counter() - t0):.1f} ms wall, "
+            f"loss {float(sc['loss']):.6f}")
+        if i == 0:
+            bwd_rec.restore()
+            seg_rec.restore()
+    if len(bwd_rec.calls) != 1 or len(seg_rec.calls) != 2:
+        raise AssertionError(f"a train step made {len(bwd_rec.calls)} tile_blend_bwd and "
+                             f"{len(seg_rec.calls)} segment_rowsum calls, expected 1 and 2")
+    bwd_in = bwd_rec.calls[0][0]
+    seg_in = [(a[0], a[1], kw["num_segments"]) for a, kw in seg_rec.calls]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in (fill.expand_runs, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd,
+              segsum.segment_rowsum):
+        k.launches = 0
+    step_ms, records = [], []
+    for i in range(TRAIN_STEPS):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, sc = train.run_step(cell, state, gen)
+        e1.record()
+        torch.cuda.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+        records.append(sc)
+    launches = {k.__name__: k.launches for k in (
+        fill.expand_runs, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd,
+        segsum.segment_rowsum)}
+    peak = torch.cuda.max_memory_allocated(dev)
+    for i, sc in enumerate(records):
+        loss = float(sc["loss"])
+        if not math.isfinite(loss) or int(sc["overflow"]) != 0:
+            raise AssertionError(f"train step {i}: loss {loss}, overflow {int(sc['overflow'])}")
+        log(f"[train] step {TRAIN_WARMUP + i}: {step_ms[i]:.3f} ms, loss {loss:.6f}, psnr "
+            f"{float(sc['psnr']):.3f}, overflow 0, alive {int(sc['num_alive'])}")
+    for k, v in flatten_params(state.params).items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"non-finite parameter {k} after training")
+    if (launches["tile_blend_bwd"] != TRAIN_STEPS or launches["tile_blend_instances"] != TRAIN_STEPS
+            or launches["segment_rowsum"] < 2 * TRAIN_STEPS or launches["expand_runs"] < TRAIN_STEPS):
+        raise AssertionError(f"train path launches {launches} for {TRAIN_STEPS} steps")
+    log(f"[train] {TRAIN_STEPS} steps: mean {sum(step_ms) / TRAIN_STEPS:.3f} ms/step (min "
+        f"{min(step_ms):.3f}, max {max(step_ms):.3f}); peak memory {peak / 2**30:.3f} GiB; "
+        f"launches {launches}")
+
+    # ---- 5d. determinism: one step twice from the same state ----
+    C = cell.scene.table.capacity
+    H, W = cell.frame.cam.H, cell.frame.cam.W
+    draws = Draws(torch.rand(C, generator=gen, device=dev) < 0.5,
+                  torch.rand((H, W, 2), generator=gen, device=dev) - 0.5)
+    (s1, _), (s2, _) = (cell.step_fn(state, cell.frame, cell.gt, draws=draws) for _ in range(2))
+    for name, a, b in [
+        *((f"params {k}", v, flatten_params(s2.params)[k]) for k, v in flatten_params(s1.params).items()),
+        *((f"adam {m} {k}", v, getattr(s2.adam, m)[k]) for m in ("mu", "nu", "count")
+          for k, v in getattr(s1.adam, m).items()),
+        ("aux grad_accum", s1.aux.grad_accum, s2.aux.grad_accum),
+        ("aux max_radii", s1.aux.max_radii, s2.aux.max_radii),
+    ]:
+        if not torch.equal(a, b):
+            raise AssertionError(f"train step not bit-reproducible: {name}")
+    log("[check] one bench train step twice from the same state: bit-equal parameters, moments, statistics")
+    del s1, s2
+
+    # ---- 5e. densify and reset once each, then one more step ----
+    n0 = int(state.aux.alive.sum())
+    state, diag = cell.densify_fn(state, gen, True)
+    state = cell.reset_fn(state)
+    state, sc = cell.step_fn(state, cell.frame, cell.gt, gen)
+    torch.cuda.synchronize()
+    loss = float(sc["loss"])
+    if not math.isfinite(loss) or int(sc["overflow"]) != 0:
+        raise AssertionError(f"step after densify: loss {loss}, overflow {int(sc['overflow'])}")
+    log(f"[train] densify (clone {int(diag['points_clone'])}, split {int(diag['points_split'])}, pruned "
+        f"{int(diag['points_pruned'])}, dropped {int(diag['points_dropped'])}): alive {n0} -> "
+        f"{int(state.aux.alive.sum())}; reset; next step loss {loss:.6f}, overflow 0")
+    capacity = C
+    del state, cell
+    torch.cuda.empty_cache()
+
+    # ---- 5f. backward kernels on the bench step's own inputs, timed ----
+    with torch.no_grad():
+        payload, starts, counts, out, gout, F, gx, T = bwd_in
+        live_mask = live_lanes(payload, starts, counts)
+        got = tile_raster2.tile_blend_bwd(*bwd_in)
+        ref = tile_raster2.tile_blend_bwd_plain(*bwd_in)
+        err_bwd = max(err_bwd, compare_blend_bwd(got, ref, live_mask, F, f"tile_blend_bwd bench step ({T} tiles)"))
+        _, work = tile_raster2.tile_blend_plain(payload, starts, counts, F, gx, T, return_work=True)
+        evaluated, blended = int(work["evaluated"]), int(work["blended"])
+        live = int(live_mask.sum())
+        bwd_ms = cuda_ms(lambda: tile_raster2.tile_blend_bwd(*bwd_in), 10)
+        bwd_plain = cuda_ms(lambda: tile_raster2.tile_blend_bwd_plain(*bwd_in), 2)
+        bwd_bytes = 4 * (live * (6 + F) + 2 * T * 256 * (F + 1) + payload.numel())
+        # f32 operations: the forward's re-walk (17 per evaluated pair,
+        # 9 + 2F per blended pair, as above) plus the gradient terms of
+        # a blended pair (30 + 3F) and its share of the 256-pixel sums
+        # (8 + F adds)
+        bwd_ops = 17 * evaluated + (47 + 6 * F) * blended
+        seg = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "calls": []}
+        # the sky's call comes first (the backward runs in reverse)
+        for d, keys, N in sorted(seg_in, key=lambda a: a[2] != capacity):
+            what = "payload" if N == capacity else "sky"
+            got = segsum.segment_rowsum(d, keys, num_segments=N)
+            ref = segsum.segment_rowsum_plain(d, keys, num_segments=N)
+            abs_sum = segsum.segment_rowsum_plain(d.abs(), keys, num_segments=N)
+            err_seg = max(err_seg, compare_segsum(
+                got, ref, abs_sum, f"segment_rowsum bench step {what} (C={d.shape[0]}, L={d.shape[1]}, N={N})"))
+            if not torch.equal(got, segsum.segment_rowsum(d, keys, num_segments=N)):
+                raise AssertionError(f"segment_rowsum {what}: repeat not bit-equal")
+            nv = int((keys < N).sum())  # the rows in a segment: a prefix of the sorted keys
+            lib = lambda: d.new_zeros((d.shape[0], N)).index_add_(1, keys[:nv], d[:, :nv])  # noqa: E731
+            call = {"what": what, "C": d.shape[0], "L": d.shape[1], "N": N,
+                    "ms": cuda_ms(lambda: segsum.segment_rowsum(d, keys, num_segments=N), 20),
+                    "plain_ms": cuda_ms(lambda: segsum.segment_rowsum_plain(d, keys, num_segments=N), 5),
+                    "library_ms": cuda_ms(lib, 20),
+                    "bytes": 4 * (d.numel() + keys.numel() + d.shape[0] * N)}
+            call["bound_ms"] = bound(call["bytes"], 0)[0]
+            seg["calls"].append(call)
+            for k in ("ms", "plain_ms", "library_ms", "bytes"):
+                seg[k] += call[k]
+            log(f"[kernel] segment_rowsum {what}: {call['ms']:.4f} ms (plain {call['plain_ms']:.4f}, "
+                f"index_add_ {call['library_ms']:.4f}), bound {call['bound_ms']:.4f} ms by bytes")
+    log(f"[kernel] bench-step counts: tile_blend_bwd bytes {bwd_bytes}, f32 ops {bwd_ops} "
+        f"({evaluated} pairs evaluated, {blended} blended); segment_rowsum bytes {seg['bytes']} per step")
+    return {
+        "launches": launches,
+        "kernels": [
+            ("tile_blend_bwd", "street_gaussians_torch/csrc/tile_blend_bwd.cu",
+             "street_gaussians_tpu/ops/tile_raster2.py:385", launches["tile_blend_bwd"], err_bwd,
+             bwd_ms, bwd_plain, None, bound(bwd_bytes, bwd_ops), {"step_ms": sum(step_ms) / TRAIN_STEPS}),
+            ("segment_rowsum", "street_gaussians_torch/csrc/segsum.cu",
+             "street_gaussians_tpu/ops/segsum.py:73", launches["segment_rowsum"], err_seg,
+             seg["ms"], seg["plain_ms"], seg["library_ms"], bound(seg["bytes"], 0),
+             {"per": "both calls of one step", "calls": seg["calls"]}),
+        ],
+    }
 
 
 if __name__ == "__main__":

@@ -27,6 +27,8 @@ from street_gaussians_torch.models.corrections import (
 )
 from street_gaussians_torch.models.renderer import FrameInput, SceneParams
 from street_gaussians_torch.models.sky_cubemap import SkyParams
+from street_gaussians_torch.optim.adam import AdamState
+from street_gaussians_torch.train_lib import GroundTruth, TrainState, flatten_params
 from street_gaussians_torch.utils.camera import Camera
 
 # fields that index other tensors
@@ -52,7 +54,7 @@ def _build(cls, d: Optional[dict], device):
     return cls(**kw)
 
 
-def scene_from_numpy(params: dict, aux: dict, table: dict, pose_data: Optional[dict], device):
+def scene_from_numpy(params: dict, aux: dict, table: Optional[dict], pose_data: Optional[dict], device):
     """(SceneParams, GaussianAux, SceneTable, ActorPoseData or None) on
     `device` from the JAX package's objects flattened to dicts."""
     scene_params = SceneParams(
@@ -92,3 +94,30 @@ def frame_from_numpy(frame: dict, device) -> FrameInput:
         ego_trans=t(frame["ego_trans"]),
         interp=_build(ActorInterp, frame.get("interp"), device),
     )
+
+
+def train_state_from_numpy(params: dict, adam: dict, aux: dict, step, device) -> TrainState:
+    """A TrainState on `device` from the JAX package's TrainState
+    flattened to dicts: params and aux as for scene_from_numpy, adam as
+    {"mu": params-shaped dict, "nu": ..., "count": ...}, step a scalar."""
+    def flat(tree):  # {"group.field": tensor}, scalars (counts) as 0-dim tensors
+        return {
+            f"{g}.{k}": torch.as_tensor(np.array(v), device=device)
+            for g, sub in tree.items() if sub is not None for k, v in sub.items()
+        }
+
+    p = scene_from_numpy(params, aux, None, None, device)[0]
+    moments = {k: flat(adam[k]) for k in ("mu", "nu", "count")}
+    if set(moments["mu"]) != set(flatten_params(p)):
+        raise ValueError("adam moments do not match the parameters")
+    return TrainState(
+        params=p,
+        adam=AdamState(**moments),
+        aux=_build(G.GaussianAux, aux, device),
+        step=int(np.asarray(step)),
+    )
+
+
+def ground_truth_from_numpy(gt: dict, device) -> GroundTruth:
+    """A GroundTruth on `device` from the JAX one flattened to a dict."""
+    return GroundTruth(**{k: torch.as_tensor(np.array(v), device=device) for k, v in gt.items()})

@@ -3,12 +3,15 @@
 Each source compiles with nvcc into its own shared library with a plain
 C interface under `street_gaussians_torch/_build/`, on first use, and is
 loaded with ctypes. Nothing builds at import time. `build` compiles
-several sources at once, one nvcc process per source.
+several sources at once, one nvcc process per source. A library's file
+name carries a hash of its source text and its nvcc flags, so a change
+to either builds a new library instead of loading a stale one.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -26,7 +29,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # per-source flags: the blend rounds every product and sum on its own,
 # as its plain PyTorch version does, so the two differ only in the
 # order of their sums
-EXTRA_FLAGS = {"tile_blend": ["-fmad=false"]}
+EXTRA_FLAGS = {"tile_blend": ["-fmad=false"], "tile_blend_bwd": ["-fmad=false"]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -43,15 +46,23 @@ def source_path(name: str) -> str:
     return os.path.join(CSRC_DIR, f"{name}.cu")
 
 
+def nvcc_flags(name: str) -> list:
+    return [
+        *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+        "-Xptxas", "-v", *EXTRA_FLAGS.get(name, []),
+    ]
+
+
+def library_name(source: bytes, name: str, flags) -> str:
+    """lib<name>-<hash>.so, the hash over the source text and the flags."""
+    h = hashlib.sha256(source)
+    h.update("\0".join(flags).encode())
+    return f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
 def library_path(name: str) -> str:
-    return os.path.join(BUILD_DIR, f"lib{name}.so")
-
-
-def _up_to_date(name: str) -> bool:
-    so = library_path(name)
-    return os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(
-        source_path(name)
-    )
+    with open(source_path(name), "rb") as f:
+        return os.path.join(BUILD_DIR, library_name(f.read(), name, nvcc_flags(name)))
 
 
 def build(names: Iterable[str]) -> Dict[str, dict]:
@@ -63,23 +74,20 @@ def build(names: Iterable[str]) -> Dict[str, dict]:
     nvcc = None
     running = {}
     for name in names:
-        if _up_to_date(name):
+        so = library_path(name)
+        if os.path.exists(so):
             continue
         nvcc = nvcc or _nvcc()
-        tmp = f"{library_path(name)}.{os.getpid()}.tmp"
-        cmd = [
-            nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            *EXTRA_FLAGS.get(name, []), "-o", tmp, source_path(name),
-        ]
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [nvcc, *nvcc_flags(name), "-o", tmp, source_path(name)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        running[name] = (proc, tmp, time.perf_counter())
+        running[name] = (proc, so, tmp, time.perf_counter())
     done = {}
-    for name, (proc, tmp, t0) in running.items():
+    for name, (proc, so, tmp, t0) in running.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{log.decode()}")
-        os.replace(tmp, library_path(name))
+        os.replace(tmp, so)
         done[name] = {"seconds": time.perf_counter() - t0, "log": log.decode()}
     return done
 

@@ -61,6 +61,17 @@ def quat_multiply_theta(q: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     )
 
 
+def _take_frame_col(t: torch.Tensor, f: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """t[f, c] for a learnable [F, O, ...] table as a one-hot product:
+    the same values (one non-zero term per sum), and a gradient that is
+    a matrix product instead of an index scatter, so it is the same on
+    every run."""
+    F, O = t.shape[:2]
+    flat = (f * O + c).reshape(-1)
+    onehot = (flat[:, None] == torch.arange(F * O, device=t.device)[None, :]).to(t.dtype)
+    return (onehot @ t.reshape(F * O, -1)).reshape(*f.shape, *t.shape[2:])
+
+
 def actor_poses(
     data: ActorPoseData,
     params: Optional[ActorPoseParams],
@@ -76,8 +87,8 @@ def actor_poses(
     trans_k = data.input_trans[f, c]  # [A, 4, 3]
     rots_k = data.input_rots[f, c]  # [A, 4, 4]
     if params is not None:
-        trans_k = trans_k + params.opt_trans[f, c]
-        rots_k = quat_multiply_theta(rots_k, params.opt_rots[f, c][..., 0])
+        trans_k = trans_k + _take_frame_col(params.opt_trans, f, c)
+        rots_k = quat_multiply_theta(rots_k, _take_frame_col(params.opt_rots, f, c)[..., 0])
 
     r_a = interp.ratios[:, 0:1]
     r_b = interp.ratios[:, 1:2]

@@ -1,7 +1,6 @@
-"""Color and pose corrections, forward only.
+"""Color and pose corrections and their identity regularizers.
 
-Port of street_gaussians_tpu/models/corrections.py (the regularizers
-and initializers that training needs come with the training slice).
+Port of street_gaussians_tpu/models/corrections.py.
 """
 
 from __future__ import annotations
@@ -11,6 +10,7 @@ from typing import Optional
 
 import torch
 
+from street_gaussians_torch.utils.losses import jnp_abs
 from street_gaussians_torch.utils.quaternion import (
     quat_multiply,
     quat_normalize,
@@ -30,6 +30,13 @@ def apply_color_correction(params: ColorCorrectionParams, idx: int, rgb: torch.T
     """rgb [H, W, 3] -> corrected [H, W, 3] by the image's affine."""
     mat = params.affine[idx]  # [3, 4]
     return rgb @ mat[:, :3].T + mat[:, 3]
+
+
+def color_correction_reg(params: ColorCorrectionParams, idx: int) -> torch.Tensor:
+    """Mean |affine - identity| of the image's two transforms (|x| with
+    jnp's gradient: an identity transform sits exactly at 0)."""
+    eye = torch.eye(4, device=params.affine.device)[:3]
+    return jnp_abs(params.affine[idx] - eye).mean() + jnp_abs(params.affine_sky[idx] - eye).mean()
 
 
 @dataclasses.dataclass
@@ -57,3 +64,9 @@ def correct_gaussian_rotation(
         return rot
     q = quat_normalize(params.rots[idx])
     return quat_multiply(q[None, :], rot)
+
+
+def pose_correction_reg(params: PoseCorrectionParams) -> torch.Tensor:
+    """Mean |trans| plus mean |normalized rots - identity|."""
+    target = torch.tensor([1.0, 0.0, 0.0, 0.0], device=params.rots.device)
+    return jnp_abs(params.trans).mean() + jnp_abs(quat_normalize(params.rots) - target[None, :]).mean()

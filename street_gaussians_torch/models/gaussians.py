@@ -19,6 +19,7 @@ import torch
 from street_gaussians_torch._device import resolve_device
 from street_gaussians_torch.utils import knn as knn_utils
 from street_gaussians_torch.utils import sh as sh_utils
+from street_gaussians_torch.utils.losses import jnp_abs, jnp_clip
 
 
 def inverse_sigmoid(x):
@@ -272,3 +273,42 @@ def active_sh_degree(step: int, max_degree: int) -> int:
     """SH degree ramp: +1 every 1000 iterations up to max."""
     return min(int(step) // 1000, max_degree)
 
+
+def sh_band_mask(active_degree: int, max_degree: int, device=None) -> torch.Tensor:
+    """[K-1] mask over feat_rest bands: band l is on when
+    active_degree >= l."""
+    K = (max_degree + 1) ** 2
+    band = torch.floor(torch.sqrt(torch.arange(1, K, dtype=torch.float32, device=device)))
+    return (band <= active_degree).to(torch.float32)
+
+
+def scale_flatten_loss(params: GaussianParams, alive: torch.Tensor) -> torch.Tensor:
+    """Flatten regularizer over alive Gaussians: the smallest axis toward
+    zero, the two large axes toward each other (dormant by default)."""
+    s = torch.sort(torch.exp(params.log_scale), dim=1).values
+    s1 = jnp_clip(s[:, 0], 0.0, 30.0)
+    s2 = jnp_clip(s[:, 1], 1e-5, 30.0)
+    s3 = jnp_clip(s[:, 2], 1e-5, 30.0)
+    per_row = jnp_abs(s1) + jnp_abs(s2 / s3 + s3 / s2 - 2.0)
+    w = alive.to(torch.float32)
+    return (per_row * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def box_reg_loss(params: GaussianParams, aux: GaussianAux, table: SceneTable) -> torch.Tensor:
+    """Actor max-scale-vs-extent regularizer, per-actor mean then mean
+    over actors (percent_dense 0.01)."""
+    if table.num_actors == 0:
+        return params.log_scale.new_zeros(())
+    mid = aux.model_id
+    M = table.num_models
+    is_actor = (mid > 0) & (table.track_id[mid] >= 0) & aux.alive
+    ext = table.extent[mid]
+    smax = torch.exp(params.log_scale).max(dim=1).values
+    smax = torch.where(smax > ext * 0.01, smax, 0.0)
+    per_row = smax / torch.clamp(ext, min=1e-6)
+    onehot = (mid[:, None] == torch.arange(M, device=mid.device)[None, :]).to(per_row.dtype)
+    sums = torch.where(is_actor, per_row, 0.0) @ onehot
+    cnts = is_actor.to(per_row.dtype) @ onehot
+    means = sums / torch.clamp(cnts, min=1.0)
+    actor = (torch.arange(M, device=mid.device) > 0) & (table.track_id >= 0)
+    return torch.where(actor, means, 0.0).sum() / torch.clamp(actor.sum(), min=1)

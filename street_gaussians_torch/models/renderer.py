@@ -3,19 +3,21 @@
 Port of street_gaussians_tpu/models/renderer.py: one vectorized compose
 over the packed Gaussian buffer (per-row gathers of per-model pose and
 metadata), then preprocess -> binning -> tile blend, then sky cubemap
-compositing and color correction. Per-frame visibility (actor lifetime,
-include masks) goes through the `alive` mask; shapes never change.
+compositing and color correction. Per-frame visibility (actor lifetime)
+goes through the `alive` mask; shapes never change.
 
-Not ported yet: the train-time flip and sky jitter (they need a
-torch.Generator and come with the training slice), semantics, normals,
-include masks (render_object / render_background), tile-row sharding
-and sky_downsample > 2.
+Train mode draws the symmetry flip of the actors and the sky's
+sub-pixel ray jitter from a torch.Generator, or takes them as tensors
+(`flip`, `sky_jitter`), so a caller can feed the JAX package's draws.
+
+Not ported yet: semantics, normals, include masks (render_object /
+render_background), tile-row sharding and sky_downsample > 2.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -46,6 +48,11 @@ from street_gaussians_torch.utils.quaternion import (
 )
 
 
+# 180-degree rotation about the flip axis (y) as a quaternion
+FLIP_QUAT = (0.0, 0.0, 1.0, 0.0)
+FLIP_AXIS = 1
+
+
 @dataclasses.dataclass
 class SceneParams:
     """Every learnable tensor of the full model."""
@@ -72,7 +79,7 @@ class FrameInput:
 class RenderOptions:
     """Static render configuration."""
 
-    mode: str = "train"  # "train" keeps the unclipped rgb and the full-res sky
+    mode: str = "train"  # "train": flip + sky jitter, unclipped rgb, full-res sky
     render_normal: bool = False
     use_semantic: bool = False
     white_background: bool = False
@@ -85,10 +92,48 @@ class RenderOptions:
     corner_cull: bool = True
 
 
-def rows_from_models(per_model: torch.Tensor, mid: torch.Tensor) -> torch.Tensor:
-    """per_model[mid]: per-model values broadcast to their rows. (The
-    JAX version's scatter-free gradient comes with the training slice.)"""
-    return per_model[mid]
+class RowsFromModels(torch.autograd.Function):
+    """per_model[mid] whose gradient needs no scatter: model m owns the
+    contiguous rows slices[m], so its gradient is a slice sum. Rows that
+    the slices do not cover fall back to a one-hot product."""
+
+    @staticmethod
+    def forward(ctx, per_model, mid, slices):
+        ctx.save_for_backward(mid)
+        ctx.slices = slices
+        ctx.num_models = per_model.shape[0]
+        return per_model[mid]
+
+    @staticmethod
+    def backward(ctx, d_rows):
+        (mid,) = ctx.saved_tensors
+        slices = ctx.slices
+        if d_rows.shape[0] == slices[-1][1] and slices[0][0] == 0:
+            d_pm = torch.stack([d_rows[s:e].sum(dim=0) for s, e in slices])
+        else:
+            models = torch.arange(ctx.num_models, device=mid.device)
+            d_pm = (mid[:, None] == models[None, :]).to(d_rows.dtype).t() @ d_rows
+        return d_pm, None, None
+
+
+def rows_from_models(
+    per_model: torch.Tensor, mid: torch.Tensor, slices: Sequence[Tuple[int, int]]
+) -> torch.Tensor:
+    """per_model[mid]: per-model values broadcast to their rows, with the
+    slice-sum gradient of RowsFromModels. slices: (start, end) per model."""
+    return RowsFromModels.apply(per_model, mid, tuple(slices))
+
+
+def draw_flip(table: G.SceneTable, mid: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """The train-time symmetry flip: row r flips with its model's
+    flip_prob ([C] bool)."""
+    u = torch.rand(mid.shape[0], generator=generator, device=generator.device).to(mid.device)
+    return u < table.flip_prob[mid]
+
+
+def draw_sky_jitter(H: int, W: int, generator: torch.Generator, device) -> torch.Tensor:
+    """The train-time sky ray jitter, [H, W, 2] in [-0.5, 0.5)."""
+    return (torch.rand((H, W, 2), generator=generator, device=generator.device) - 0.5).to(device)
 
 
 def compose_frame(
@@ -99,9 +144,12 @@ def compose_frame(
     frame_inp: FrameInput,
     step: int,
     opts: RenderOptions = RenderOptions(),
+    flip: Optional[torch.Tensor] = None,
 ):
     """World-space per-Gaussian attributes for one camera: a dict of
-    means3d, scales, quats, opacity, shs, visible (all [C, ...])."""
+    means3d, scales, quats, opacity, shs, visible (all [C, ...]).
+    flip: optional [C] bool, the train-time symmetry flip (actor rows
+    mirrored across the y axis of their box frame); train mode only."""
     if opts.use_semantic or opts.render_normal:
         raise NotImplementedError("semantics and normals are not ported yet")
     g = params.gaussians
@@ -129,12 +177,21 @@ def compose_frame(
         obj_quat = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev).expand(M, 4)
         obj_trans = torch.zeros((M, 3), device=dev)
 
-    row_quat = rows_from_models(obj_quat, mid)  # [C, 4]
-    row_trans = rows_from_models(obj_trans, mid)  # [C, 3]
+    slices = [(int(a), int(b)) for a, b in table.slices]
+    row_quat = rows_from_models(obj_quat, mid, slices)  # [C, 4]
+    row_trans = rows_from_models(obj_trans, mid, slices)  # [C, 3]
+
+    xyz_local, rot_local = g.xyz, g.rot
+    if opts.mode == "train" and flip is not None:
+        mirror = torch.ones(3, device=dev)
+        mirror[FLIP_AXIS] = -1.0
+        fq = torch.tensor(FLIP_QUAT, device=dev)
+        xyz_local = torch.where(flip[:, None], xyz_local * mirror, xyz_local)
+        rot_local = torch.where(flip[:, None], quat_multiply(fq[None, :], rot_local), rot_local)
 
     # local -> world (actors) / pose correction (background)
-    xyz_world_actor = quat_rotate(row_quat, g.xyz) + row_trans
-    rot_world_actor = quat_normalize(quat_multiply(row_quat, quat_normalize(g.rot)))
+    xyz_world_actor = quat_rotate(row_quat, xyz_local) + row_trans
+    rot_world_actor = quat_normalize(quat_multiply(row_quat, quat_normalize(rot_local)))
     if params.pose_correction is not None:
         pc_idx = frame_inp.cam.image_id
         xyz_bkgd = correct_gaussian_xyz(params.pose_correction, pc_idx, g.xyz)
@@ -223,11 +280,15 @@ def screen_space(
     frame_inp: FrameInput,
     step: int,
     opts: RenderOptions = RenderOptions(),
+    flip: Optional[torch.Tensor] = None,
+    mean2d_offset: Optional[torch.Tensor] = None,
 ):
     """Per-Gaussian half of the render: compose + screen-space
-    preprocess. Returns (screen, composed dict)."""
+    preprocess. Returns (screen, composed dict). mean2d_offset: optional
+    [C, 2] zeros added to the screen means, whose gradient is the
+    view-space mean gradient that densification collects."""
     cam = frame_inp.cam
-    composed = compose_frame(params, aux, table, pose_data, frame_inp, step, opts)
+    composed = compose_frame(params, aux, table, pose_data, frame_inp, step, opts, flip)
     max_deg = max(table.sh_degree_bkgd, table.sh_degree_obj)
     screen = preprocess_gaussians(
         means3d=composed["means3d"],
@@ -249,6 +310,8 @@ def screen_space(
         alive=composed["visible"],
         max_tiles_per_gaussian=opts.max_tiles_per_gaussian,
     )
+    if mean2d_offset is not None:
+        screen = screen._replace(mean2d=screen.mean2d + mean2d_offset)
     return screen, composed
 
 
@@ -261,14 +324,31 @@ def render_frame(
     step: int,
     opts: RenderOptions = RenderOptions(),
     sky_table: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    flip: Optional[torch.Tensor] = None,
+    sky_jitter: Optional[torch.Tensor] = None,
+    mean2d_offset: Optional[torch.Tensor] = None,
+    absgrad_dummy: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """Full render of one camera -> dict rgb/acc/depth/T/radii/...
 
     sky_table: optional precomputed build_sky_table(params.sky.cubemap),
-    for serving (frozen parameters): skips the per-frame table build."""
+    for serving (frozen parameters): skips the per-frame table build.
+    Train mode: `flip` ([C] bool) and `sky_jitter` ([H, W, 2]) are drawn
+    from `generator`, flip first, unless given; with neither, none.
+    mean2d_offset / absgrad_dummy: optional [C, 2] zeros whose gradients
+    are the view-space mean gradient and its per-pixel-abs (AbsGS) sum."""
     cam = frame_inp.cam
+    train = opts.mode == "train"
+    if train and generator is not None:
+        if flip is None:
+            flip = draw_flip(table, aux.model_id, generator)
+        if sky_jitter is None and params.sky is not None:
+            sky_jitter = draw_sky_jitter(cam.H, cam.W, generator, params.sky.cubemap.device)
     with record_function("screen_space"):
-        screen, _ = screen_space(params, aux, table, pose_data, frame_inp, step, opts)
+        screen, _ = screen_space(
+            params, aux, table, pose_data, frame_inp, step, opts, flip, mean2d_offset
+        )
     dev = screen.depth.device
     bg = torch.full((3,), 1.0 if opts.white_background else 0.0, device=dev)
     out = rasterize(
@@ -282,14 +362,18 @@ def render_frame(
             instance_capacity=opts.instance_capacity,
             corner_cull=opts.corner_cull,
         ),
+        absgrad_dummy=absgrad_dummy,
     )
 
     if params.sky is not None:
-        ds = opts.sky_downsample if opts.mode != "train" else 1
+        ds = opts.sky_downsample if not train else 1
         if ds not in (1, 2):
             raise NotImplementedError(f"sky_downsample={ds} is not ported yet (1 or 2)")
         with record_function("sky"):
-            sky_rgb = render_sky(params.sky, cam, downsample=ds, table=sky_table)
+            sky_rgb = render_sky(
+                params.sky, cam, downsample=ds, table=sky_table,
+                jitter=sky_jitter if train else None,
+            )
             if ds == 2:
                 sky_rgb = _upsample2x(sky_rgb)[: cam.H, : cam.W]
             out["rgb"] = out["rgb"] + sky_rgb * out["T"][..., None]
@@ -297,7 +381,7 @@ def render_frame(
     if params.color_correction is not None:
         out["rgb"] = apply_color_correction(params.color_correction, cam.image_id, out["rgb"])
 
-    if opts.mode != "train":
+    if not train:
         out["rgb"] = torch.clamp(out["rgb"], 0.0, 1.0)
 
     out["radii"] = screen.radius

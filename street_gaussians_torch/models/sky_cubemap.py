@@ -1,8 +1,11 @@
 """Sky cubemap: bilinear cube sampling through a double-window table.
 
-Port of street_gaussians_tpu/models/sky_cubemap.py, forward only (the
-cubemap gradient, a sort + segmented row-sum, comes with the training
-slice). Face layout follows nvdiffrast's OpenGL convention:
+Port of street_gaussians_tpu/models/sky_cubemap.py. The 4-tap lookup is
+an autograd Function whose cubemap gradient needs no scatter: one entry
+per pixel keyed by its base texel carries the 12 weighted cotangents,
+a stable sort and a segmented row-sum (ops/segsum.py) give per-texel
+sums, and three shifted tap planes add up. Face layout follows
+nvdiffrast's OpenGL convention:
   face 0 +x: dir = ( 1, -v, -u)      face 1 -x: dir = (-1, -v,  u)
   face 2 +y: dir = ( u,  1,  v)      face 3 -y: dir = ( u, -1, -v)
   face 4 +z: dir = ( u, -v,  1)      face 5 -z: dir = (-u, -v, -1)
@@ -19,7 +22,9 @@ import numpy as np
 import torch
 
 from street_gaussians_torch._device import resolve_device
+from street_gaussians_torch.ops.segsum import segment_rowsum
 from street_gaussians_torch.utils.camera import Camera, camera_rays
+from street_gaussians_torch.utils.losses import jnp_clip
 
 # texels per window-table row
 WINDOW = 16
@@ -93,6 +98,44 @@ def _combine_taps(tbl: torch.Tensor, base: torch.Tensor, e4: torch.Tensor) -> to
     return out.reshape(*base.shape, 3)
 
 
+def bilinear_taps_grad(
+    d_out: torch.Tensor, base: torch.Tensor, e4: torch.Tensor, T: int, R: int
+) -> torch.Tensor:
+    """Cubemap gradient [3, T] of the 4-tap lookup (the JAX package's
+    _bt_bwd), without a scatter: sort one entry per pixel by its base
+    texel (stable, so the sum order is fixed), carrying the 12 channels
+    e_t * d_rgb (row 3t + r: tap t, channel r); sum each texel's rows
+    with segment_rowsum; then add the +1, +R and +R+1 tap planes shifted
+    to their texels. Live taps never cross a row or face edge (border
+    folding gives such taps weight 0)."""
+    C = d_out.shape[-1]
+    ef = e4.reshape(-1, 4)
+    chans = (ef[:, :, None] * d_out.reshape(-1, C)[:, None, :]).reshape(-1, 4 * C).t()
+    skeys, order = torch.sort(base.reshape(-1).to(torch.int32), stable=True)
+    planes = segment_rowsum(chans[:, order], skeys, num_segments=T, skip_empty=True)
+    d_cm = planes[0:C].clone()
+    for t, off in enumerate((1, R, R + 1)):
+        d_cm[:, off:] += planes[(t + 1) * C : (t + 2) * C, : T - off]
+    return d_cm
+
+
+class BilinearTaps(torch.autograd.Function):
+    """The 4-tap lookup of a [3, T] cubemap with bilinear_taps_grad as
+    its gradient. Rays come from the camera and the jitter, neither
+    learnable, so the tap weights and base texels get none."""
+
+    @staticmethod
+    def forward(ctx, cm3, base, e4, R):
+        ctx.save_for_backward(base, e4)
+        ctx.dims = (cm3.shape[1], R)
+        return _combine_taps(_window_table(cm3, R), base, e4)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        base, e4 = ctx.saved_tensors
+        return bilinear_taps_grad(d_out, base, e4, *ctx.dims), None, None, None
+
+
 def build_sky_table(cubemap: torch.Tensor) -> torch.Tensor:
     """The serving-time window table for `sample_cubemap(table=...)`.
     Depends only on the cubemap: build once, sample every frame."""
@@ -103,7 +146,9 @@ def sample_cubemap(
     cubemap: torch.Tensor, dirs: torch.Tensor, table: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     """Bilinear cube sampling. dirs [..., 3] (need not be normalized);
-    returns [..., 3]. `table`: optional precomputed build_sky_table."""
+    returns [..., 3]. `table`: optional precomputed build_sky_table, for
+    serving only (not differentiable in the cubemap); without it the
+    window table is built from the live cubemap."""
     R = sky_resolution(cubemap)
     x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
     ax, ay, az = torch.abs(x), torch.abs(y), torch.abs(z)
@@ -151,9 +196,9 @@ def sample_cubemap(
     e10 = (1 - degy) * (w10 + degx * w11)
     e11 = (1 - degx) * (1 - degy) * w11
     e4 = torch.stack([e00, e01, e10, e11], dim=-1)
-    if table is None:
-        table = _window_table(cubemap, R)
-    return _combine_taps(table, base, e4)
+    if table is not None:
+        return _combine_taps(table, base, e4)
+    return BilinearTaps.apply(cubemap, base, e4, R)
 
 
 def render_sky(
@@ -161,9 +206,11 @@ def render_sky(
     cam: Camera,
     downsample: int = 1,
     table: Optional[torch.Tensor] = None,
+    jitter: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Per-pixel sky color [H, W, 3], clamped to [0, 1]; with
-    downsample > 1 the small [ceil(H/N), ceil(W/N), 3] image that the
-    caller upsamples."""
-    dirs = camera_rays(cam, downsample=downsample)
-    return torch.clamp(sample_cubemap(params.cubemap, dirs, table=table), 0.0, 1.0)
+    """Per-pixel sky color [H, W, 3], clamped to [0, 1] (jnp.clip's
+    gradient: half at a tie); with downsample > 1 the small
+    [ceil(H/N), ceil(W/N), 3] image that the caller upsamples.
+    jitter: optional [H, W, 2] train-time sub-pixel ray offsets."""
+    dirs = camera_rays(cam, downsample=downsample, jitter=jitter)
+    return jnp_clip(sample_cubemap(params.cubemap, dirs, table=table), 0.0, 1.0)

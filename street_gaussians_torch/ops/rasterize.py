@@ -1,8 +1,12 @@
 """Rasterization: preprocess output -> binning -> payload gather ->
 tile blend -> image assembly + background compositing.
 
-Port of street_gaussians_tpu/ops/rasterize.py, forward, on the
-instance layout. The dense-table layout ("table") is not ported yet.
+Port of street_gaussians_tpu/ops/rasterize.py on the instance layout.
+The payload gather and the tile blend are autograd Functions with the
+JAX package's scatter-free gradients: the blend's is the backward
+kernel (ops/tile_raster2.py), the gather's a stable sort of the
+cotangent rows by Gaussian id and a segmented row-sum (ops/segsum.py).
+The dense-table layout ("table") is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,10 +19,11 @@ from torch.profiler import record_function
 
 from street_gaussians_torch.ops import binning as binning_lib
 from street_gaussians_torch.ops.preprocess import TILE, GaussianScreenData
+from street_gaussians_torch.ops.segsum import BIG, segment_rowsum
 from street_gaussians_torch.ops.tile_raster2 import (
     CHUNK,
+    TileBlendInstances,
     payload_rows,
-    tile_blend_instances,
 )
 
 
@@ -38,11 +43,7 @@ def _grid_dims(H: int, W: int):
     return (W + TILE - 1) // TILE, (H + TILE - 1) // TILE
 
 
-def build_payload_blocks(src: torch.Tensor, inst_gauss: torch.Tensor) -> torch.Tensor:
-    """Gather [N, C] rows into packed instance blocks
-    [num_blocks + 1, C, 128] (the final block is the trash block; dropped
-    slots are zero). Forward only: its gradient, a sorted segmented
-    row-sum, comes with the training slice."""
+def _gather_blocks(src: torch.Tensor, inst_gauss: torch.Tensor) -> torch.Tensor:
     valid = inst_gauss >= 0
     safe = torch.clamp(inst_gauss, min=0).to(torch.int64)
     gathered = torch.where(valid[:, None], src[safe], 0.0)
@@ -53,6 +54,40 @@ def build_payload_blocks(src: torch.Tensor, inst_gauss: torch.Tensor) -> torch.T
     payload = torch.zeros((nb + 1, CHUNK, c_pad), dtype=src.dtype, device=src.device)
     payload.view(-1, c_pad)[:S] = gathered
     return payload.transpose(1, 2).contiguous()
+
+
+def payload_grad(d_blocks: torch.Tensor, inst_gauss: torch.Tensor, n: int) -> torch.Tensor:
+    """The gather's gradient, [n, C], without a scatter (the JAX
+    package's _bpb_bwd): sort the slot rows by Gaussian id (stable, so
+    the sum order is fixed), carry the C channels along, and sum each
+    id's contiguous rows with segment_rowsum. Dropped slots get key BIG
+    and fall in no segment."""
+    C = d_blocks.shape[1]
+    S = inst_gauss.shape[0]
+    flat = d_blocks.transpose(0, 1).reshape(C, -1)[:, :S]  # [C, S]
+    keys = torch.where(inst_gauss >= 0, inst_gauss, BIG).to(torch.int32)
+    skeys, order = torch.sort(keys, stable=True)
+    return segment_rowsum(flat[:, order], skeys, num_segments=n).t()
+
+
+class BuildPayloadBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, src, inst_gauss):
+        ctx.save_for_backward(inst_gauss)
+        ctx.n = src.shape[0]
+        return _gather_blocks(src, inst_gauss)
+
+    @staticmethod
+    def backward(ctx, d_blocks):
+        (inst_gauss,) = ctx.saved_tensors
+        return payload_grad(d_blocks, inst_gauss, ctx.n), None
+
+
+def build_payload_blocks(src: torch.Tensor, inst_gauss: torch.Tensor) -> torch.Tensor:
+    """Gather [N, C] rows into packed instance blocks
+    [num_blocks + 1, C, 128] (the final block is the trash block; dropped
+    slots are zero), with the scatter-free gradient `payload_grad`."""
+    return BuildPayloadBlocks.apply(src, inst_gauss)
 
 
 class BlendInputs(NamedTuple):
@@ -69,8 +104,11 @@ def blend_inputs(
     W: int,
     extra_features: Optional[torch.Tensor] = None,
     config: RasterizeConfig = RasterizeConfig(),
+    absgrad_dummy: Optional[torch.Tensor] = None,
 ) -> BlendInputs:
-    """Binning and the payload: everything the tile blend reads."""
+    """Binning and the payload: everything the tile blend reads.
+    absgrad_dummy: optional [N, 2] zeros in the payload's AbsGS rows
+    (see `rasterize`)."""
     if config.layout != "instance":
         raise NotImplementedError(f"layout={config.layout!r} is not ported yet")
     grid_x, grid_y = _grid_dims(H, W)
@@ -86,8 +124,12 @@ def blend_inputs(
             corner_cull=config.corner_cull,
         )
     with record_function("payload"):
-        # one [N, c_pad] source: (mx, my, ca, cb, cc, op, feats..., zero rows)
-        src = torch.cat([screen.mean2d, screen.conic, screen.opacity[:, None], features], dim=-1)
+        # one [N, c_pad] source: (mx, my, ca, cb, cc, op, feats..., AbsGS
+        # rows, zero rows)
+        cols = [screen.mean2d, screen.conic, screen.opacity[:, None], features]
+        if absgrad_dummy is not None:
+            cols.append(absgrad_dummy)
+        src = torch.cat(cols, dim=-1)
         src = torch.nn.functional.pad(src, (0, c_pad - src.shape[1]))
         payload = build_payload_blocks(src, bins.inst_gauss)
     return BlendInputs(payload, bins, F, grid_x, grid_y)
@@ -100,16 +142,21 @@ def rasterize(
     bg_color: torch.Tensor,
     extra_features: Optional[torch.Tensor] = None,
     config: RasterizeConfig = RasterizeConfig(),
+    absgrad_dummy: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """Rasterize preprocessed Gaussians to an image.
+
+    absgrad_dummy: optional [N, 2] zeros. It does not change the output;
+    its gradient is the per-pixel-abs sum of the mean2d gradient (AbsGS
+    densification), which the blend's backward writes into its rows.
 
     Returns rgb [H,W,3] (composited over bg_color as rgb + T * bg), acc
     [H,W], depth [H,W], T [H,W], extra [H,W,S] (if requested), and the
     binning diagnostics."""
-    bi = blend_inputs(screen, H, W, extra_features, config)
+    bi = blend_inputs(screen, H, W, extra_features, config, absgrad_dummy)
     F, grid_x, grid_y = bi.num_features, bi.grid_x, bi.grid_y
     with record_function("tile_blend"):
-        out = tile_blend_instances(
+        out = TileBlendInstances.apply(
             bi.payload, bi.bins.tile_start, bi.bins.tile_count, F, grid_x, grid_x * grid_y
         )
     # tile-major [T, 256, F+1] -> [H, W, F+1]

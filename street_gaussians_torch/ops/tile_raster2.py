@@ -1,7 +1,7 @@
-"""Instance-major tile blend, forward (kernel B).
+"""Instance-major tile blend: forward (kernel B) and backward.
 
 Replaces street_gaussians_tpu/ops/tile_raster2.py::_fwd_kernel with
-`csrc/tile_blend.cu`. Each 16x16 tile owns a ragged run
+`csrc/tile_blend.cu` and its `_bwd_kernel` with `csrc/tile_blend_bwd.cu`. Each 16x16 tile owns a ragged run
 [tile_start, tile_start + tile_count) of the (tile, depth)-sorted
 instance array (ops/binning.bin_gaussians_instances); instance i lives
 at payload[i // 128, :, i % 128].
@@ -20,15 +20,19 @@ needs none of the TPU kernel's flattened step tables
 transmittance is carried in log space with the JAX kernel's
 termination test (see `csrc/tile_blend.cu`).
 
-`tile_blend_instances` runs the plain PyTorch version for a CPU tensor
-and the kernel for a CUDA tensor. Forward only: the backward kernel
-belongs to the training slice.
+`tile_blend_instances` (forward) and `tile_blend_bwd` (backward) run
+their plain PyTorch versions for a CPU tensor and their kernels for a
+CUDA tensor. `TileBlendInstances` is the autograd Function around the
+two: the gradient of the payload, [NB+1, c_pad, 128], holds per
+instance lane d mean x/y, d conic a/b/c, d opacity, d features and the
+two AbsGS rows (per-pixel |d mean2d| sums) where the forward has zeros.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -70,6 +74,56 @@ def _pixel_coords(tiles: torch.Tensor, grid_x: int):
     return px.to(torch.float32), py.to(torch.float32)
 
 
+class _Block(NamedTuple):
+    """One 128-lane payload block of each active tile's run, per (tile,
+    pixel, lane): what both plain versions compute from it."""
+
+    bidx: torch.Tensor  # [m] payload block index
+    blk: torch.Tensor  # [m, c_pad, 128]
+    slot_valid: torch.Tensor  # [m, 128] lanes inside the tile's run
+    dx: torch.Tensor  # [m, 256, 128]
+    dy: torch.Tensor
+    conic: tuple  # (ca, cb, cc), each [m, 1, 128]
+    apow: torch.Tensor  # exp(min(power, 0))
+    alpha_raw: torch.Tensor  # op * apow
+    a: torch.Tensor  # clamped alpha where active, else 0
+    logs: torch.Tensor  # log1p(-a)
+    cums: torch.Tensor  # in-block inclusive prefix of logs
+    lT: torch.Tensor  # [m, 256, 1] log T before the block
+    blend: torch.Tensor  # bool: blended
+    trigger: torch.Tensor  # bool: stops its pixel, not blended
+
+
+def _plain_block(payload, b0, start, cnt, tiles, act, i, px, py, done, logT) -> _Block:
+    """Block i of the active tiles' runs, in the JAX kernel's log-space
+    prefix form (tile_raster2._block_alpha / _blend_masks_log)."""
+    tg = tiles[act]
+    bidx = b0[tg] + i
+    blk = payload[bidx]  # [m, c_pad, 128]
+    glob = bidx[:, None] * CHUNK + torch.arange(CHUNK, device=payload.device)[None, :]
+    slot_valid = (glob >= start[tg, None]) & (glob < (start + cnt)[tg, None])
+    mx, my, ca, cb, cc, op = blk[:, :PAYLOAD_HEADER, None, :].unbind(1)  # [m, 1, 128] each
+    dx = mx - px[act][:, :, None]  # [m, 256, 128]
+    dy = my - py[act][:, :, None]
+    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    apow = torch.exp(torch.clamp(power, max=0.0))
+    alpha_raw = op * apow
+    alpha = torch.clamp(alpha_raw, max=ALPHA_MAX)
+    active = (
+        (power <= 0.0) & (alpha >= ALPHA_MIN)
+        & ~done[act][:, :, None] & slot_valid[:, None, :]
+    )
+    a = torch.where(active, alpha, 0.0)
+    logs = torch.log1p(-a)
+    cums = torch.cumsum(logs, dim=2)
+    lT = logT[act][:, :, None]
+    not_term = lT + cums >= LOG_T_EPS
+    return _Block(
+        bidx, blk, slot_valid, dx, dy, (ca, cb, cc), apow, alpha_raw, a, logs, cums, lT,
+        blend=(a > 0.0) & not_term, trigger=(a > 0.0) & ~not_term,
+    )
+
+
 def tile_blend_plain(
     payload: torch.Tensor,
     tile_start: torch.Tensor,
@@ -94,7 +148,6 @@ def tile_blend_plain(
     nblocks = torch.where(cnt > 0, (start % CHUNK + cnt + CHUNK - 1) // CHUNK, 0)
     b0 = start // CHUNK
     out = torch.empty((num_tiles, PIX, F + 1), dtype=torch.float32, device=dev)
-    lane = torch.arange(CHUNK, device=dev)
     work = {k: torch.zeros((), dtype=torch.int64, device=dev) for k in ("evaluated", "blended")}
     for t0 in range(0, num_tiles, _PLAIN_TILES):
         tiles = torch.arange(t0, min(t0 + _PLAIN_TILES, num_tiles), device=dev)
@@ -109,39 +162,19 @@ def tile_blend_plain(
             act = ((i < nb) & ~done.all(dim=1)).nonzero().squeeze(1)
             if act.numel() == 0:
                 break
-            tg = tiles[act]
-            blk = payload[b0[tg] + i]  # [m, c_pad, 128]
-            glob = (b0[tg] + i)[:, None] * CHUNK + lane[None, :]
-            slot_valid = (glob >= start[tg, None]) & (glob < (start + cnt)[tg, None])
-            hdr = blk[:, :PAYLOAD_HEADER, None, :]  # [m, 6, 1, 128]
-            mx, my, ca, cb, cc, op = hdr.unbind(1)
-            dx = mx - px[act][:, :, None]  # [m, 256, 128]
-            dy = my - py[act][:, :, None]
-            power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-            alpha = torch.clamp(op * torch.exp(torch.clamp(power, max=0.0)), max=ALPHA_MAX)
-            d_act = done[act]
-            active = (
-                (power <= 0.0) & (alpha >= ALPHA_MIN)
-                & ~d_act[:, :, None] & slot_valid[:, None, :]
-            )
-            a = torch.where(active, alpha, 0.0)
-            logs = torch.log1p(-a)
-            cums = torch.cumsum(logs, dim=2)
-            lT = logT[act][:, :, None]
-            not_term = lT + cums >= LOG_T_EPS
-            blend = (a > 0.0) & not_term
-            trigger = (a > 0.0) & ~not_term
-            w = torch.where(blend, a * torch.exp(lT + cums - logs), 0.0)
-            feat = blk[:, PAYLOAD_HEADER:PAYLOAD_HEADER + F, :]  # [m, F, 128]
-            accum[act] += torch.einsum("mpl,mfl->mpf", w, feat)
-            logT[act] += torch.where(blend, logs, 0.0).sum(dim=2)
-            done[act] |= trigger.any(dim=2)
+            k = _plain_block(payload, b0, start, cnt, tiles, act, i, px, py, done, logT)
+            w = torch.where(k.blend, k.a * torch.exp(k.lT + k.cums - k.logs), 0.0)
+            feat = k.blk[:, PAYLOAD_HEADER:PAYLOAD_HEADER + F, :]  # [m, F, 128]
             if return_work:
                 # lanes up to and including the stopping one: those
                 # whose exclusive prefix had not yet terminated
-                reached = lT + (cums - logs) >= LOG_T_EPS
-                work["evaluated"] += (slot_valid[:, None, :] & ~d_act[:, :, None] & reached).sum()
-                work["blended"] += blend.sum()
+                reached = k.lT + (k.cums - k.logs) >= LOG_T_EPS
+                evaluated = k.slot_valid[:, None, :] & ~done[act][:, :, None] & reached
+                work["evaluated"] += evaluated.sum()
+                work["blended"] += k.blend.sum()
+            accum[act] += torch.einsum("mpl,mfl->mpf", w, feat)
+            logT[act] += torch.where(k.blend, k.logs, 0.0).sum(dim=2)
+            done[act] |= k.trigger.any(dim=2)
         out[tiles, :, :F] = accum
         out[tiles, :, F] = torch.exp(logT)
     return (out, work) if return_work else out
@@ -197,3 +230,156 @@ def tile_blend_instances(
 
 
 tile_blend_instances.launches = 0
+
+
+def _bind_bwd(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tile_blend_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    lib.tile_blend_bwd.restype = ctypes.c_int
+
+
+def tile_blend_bwd_plain(
+    payload: torch.Tensor,
+    tile_start: torch.Tensor,
+    tile_count: torch.Tensor,
+    out: torch.Tensor,
+    gout: torch.Tensor,
+    num_features: int,
+    grid_x: int,
+    num_tiles: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of the backward: vectorised over tiles,
+    sequential over each run's 128-lane blocks, in the JAX kernel's form
+    (the suffix as S_total minus the prefix of u, the blend masks from
+    the forward's log-space prefix). Returns d_payload, the shape of
+    payload, zero outside the live runs."""
+    F = num_features
+    dev = payload.device
+    start = tile_start.to(torch.int64)
+    cnt = tile_count.to(torch.int64)
+    nblocks = torch.where(cnt > 0, (start % CHUNK + cnt + CHUNK - 1) // CHUNK, 0)
+    b0 = start // CHUNK
+    d_payload = torch.zeros_like(payload)
+    for t0 in range(0, num_tiles, _PLAIN_TILES):
+        tiles = torch.arange(t0, min(t0 + _PLAIN_TILES, num_tiles), device=dev)
+        n = tiles.numel()
+        px, py = _pixel_coords(tiles, grid_x)
+        g = gout[tiles, :, :F]  # [n, 256, F]
+        s_total = (g * out[tiles, :, :F]).sum(dim=2)
+        gt_tfin = gout[tiles, :, F] * out[tiles, :, F]
+        logT = torch.zeros((n, PIX), dtype=torch.float32, device=dev)
+        u_prev = torch.zeros((n, PIX), dtype=torch.float32, device=dev)
+        done = torch.zeros((n, PIX), dtype=torch.bool, device=dev)
+        nb = nblocks[tiles]
+        for i in range(int(nb.max()) if n else 0):
+            act = ((i < nb) & ~done.all(dim=1)).nonzero().squeeze(1)
+            if act.numel() == 0:
+                break
+            k = _plain_block(payload, b0, start, cnt, tiles, act, i, px, py, done, logT)
+            dx, dy, (ca, cb, cc), a = k.dx, k.dy, k.conic, k.a
+            tprefix = torch.exp(k.lT + k.cums - k.logs)
+            w = torch.where(k.blend, a * tprefix, 0.0)
+            feat = k.blk[:, PAYLOAD_HEADER:PAYLOAD_HEADER + F, :]  # [m, F, 128]
+            ga = g[act]
+            phi = torch.einsum("mpf,mfl->mpl", ga, feat)
+            u = w * phi
+            suffix = s_total[act][:, :, None] - (torch.cumsum(u, dim=2) + u_prev[act][:, :, None])
+            da = torch.where(
+                k.blend, tprefix * phi - (suffix + gt_tfin[act][:, :, None]) / (1.0 - a), 0.0
+            )
+            da_eff = torch.where(k.alpha_raw <= ALPHA_MAX, da, 0.0)
+            dpow = k.alpha_raw * da_eff
+            gmx = ca * dx + cb * dy
+            gmy = cc * dy + cb * dx
+            new_rows = torch.cat(
+                [
+                    torch.stack(
+                        [
+                            (-gmx * dpow).sum(dim=1),
+                            (-gmy * dpow).sum(dim=1),
+                            (-0.5 * dx * dx * dpow).sum(dim=1),
+                            (-dx * dy * dpow).sum(dim=1),
+                            (-0.5 * dy * dy * dpow).sum(dim=1),
+                            (k.apow * da_eff).sum(dim=1),
+                        ],
+                        dim=1,
+                    ),
+                    torch.einsum("mpf,mpl->mfl", ga, w),
+                    torch.stack(
+                        [(gmx * dpow).abs().sum(dim=1), (gmy * dpow).abs().sum(dim=1)], dim=1
+                    ),
+                ],
+                dim=1,
+            )  # [m, 8 + F, 128]
+            # a boundary block is shared by two tiles of this step, never
+            # a lane: add each tile's own lanes into the zeros
+            new_rows = torch.where(k.slot_valid[:, None, :], new_rows, 0.0)
+            d_payload[:, : PAYLOAD_HEADER + F + ABS_ROWS].index_add_(0, k.bidx, new_rows)
+            logT[act] += torch.where(k.blend, k.logs, 0.0).sum(dim=2)
+            u_prev[act] += u.sum(dim=2)
+            done[act] |= k.trigger.any(dim=2)
+    return d_payload
+
+
+def tile_blend_bwd(
+    payload: torch.Tensor,
+    tile_start: torch.Tensor,
+    tile_count: torch.Tensor,
+    out: torch.Tensor,
+    gout: torch.Tensor,
+    num_features: int,
+    grid_x: int,
+    num_tiles: int,
+) -> torch.Tensor:
+    """Gradient of tile_blend_instances' payload given its output `out`
+    and the output's cotangent `gout` (both [num_tiles, 256, F+1])."""
+    _check_args(payload, tile_start, tile_count, num_features, num_tiles)
+    shape = (num_tiles, PIX, num_features + 1)
+    for name, t in (("out", out), ("gout", gout)):
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != payload.device:
+            raise ValueError(f"tile_blend_bwd: {name} must be {list(shape)} float32 on the payload's device")
+    if payload.shape[1] < payload_rows(num_features):
+        raise ValueError("tile_blend_bwd: payload has fewer rows than payload_rows(F)")
+    if payload.device.type == "cpu":
+        return tile_blend_bwd_plain(
+            payload, tile_start, tile_count, out, gout, num_features, grid_x, num_tiles
+        )
+    _build.require_cuda(payload, "tile_blend_bwd")
+    if not 1 <= num_features <= MAX_FEATURES:
+        raise ValueError(
+            f"tile_blend_bwd: the kernel takes 1..{MAX_FEATURES} features, got {num_features}"
+        )
+    payload, tile_start, tile_count, out, gout = (
+        t.contiguous() for t in (payload, tile_start, tile_count, out, gout)
+    )
+    d_payload = torch.zeros_like(payload)
+    lib = _build.load("tile_blend_bwd", _bind_bwd)
+    err = lib.tile_blend_bwd(
+        _build.ptr(payload), _build.ptr(tile_start), _build.ptr(tile_count),
+        _build.ptr(out), _build.ptr(gout), _build.ptr(d_payload),
+        num_tiles, grid_x, payload.shape[1], num_features, _build.stream_of(payload),
+    )
+    _build.check(err, "tile_blend_bwd")
+    tile_blend_bwd.launches += 1
+    return d_payload
+
+
+tile_blend_bwd.launches = 0
+
+
+class TileBlendInstances(torch.autograd.Function):
+    """tile_blend_instances with tile_blend_bwd as its gradient (the
+    payload's only; the run descriptors are integers)."""
+
+    @staticmethod
+    def forward(ctx, payload, tile_start, tile_count, num_features, grid_x, num_tiles):
+        out = tile_blend_instances(payload, tile_start, tile_count, num_features, grid_x, num_tiles)
+        ctx.save_for_backward(payload, tile_start, tile_count, out)
+        ctx.dims = (num_features, grid_x, num_tiles)
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        payload, tile_start, tile_count, out = ctx.saved_tensors
+        d_payload = tile_blend_bwd(payload, tile_start, tile_count, out, gout.contiguous(), *ctx.dims)
+        return d_payload, None, None, None, None, None

@@ -114,12 +114,16 @@ def render_views(
 STAGES = ("screen_space", "binning", "payload", "tile_blend", "sky")
 
 
-def trace_summary(trace_path: str, wall_ms: float, views: int) -> dict:
-    """From a Chrome trace of `views` views that took `wall_ms` on the
-    host: the device's busy time (union of kernel, copy and set
-    intervals) and idle share, and per view and stage the device span,
-    the kernel time and count inside it, the host time and the host's
-    stream synchronisations; plus the kernels that took the most time."""
+def trace_summary(trace_path: str, wall_ms: float, views: int, stages=STAGES) -> dict:
+    """From a Chrome trace of `views` views (or steps) that took
+    `wall_ms` on the host: the device's busy time (union of kernel, copy
+    and set intervals) and idle share, and per view and stage (profiler
+    range name) the device span, the kernel time and count inside it,
+    the kernel time and count launched (from any host thread) while the
+    host range was open, the host time and the host's stream
+    synchronisations; plus the kernels that took the most time. The
+    launched counts see the backward, whose kernels autograd launches
+    from its own thread outside the device span of the range."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     dev = sorted(
@@ -132,9 +136,13 @@ def trace_summary(trace_path: str, wall_ms: float, views: int) -> dict:
         if b > end:
             busy_us += b - max(a, end)
             end = b
-    syncs = [e for e in events if e.get("cat") == "cuda_runtime"
-             and e.get("name") in ("cudaStreamSynchronize", "cudaDeviceSynchronize")]
-    stages = {k: dict(span_ms=0.0, kernel_ms=0.0, kernels=0, host_ms=0.0, host_syncs=0) for k in STAGES}
+    runtime = [e for e in events if e.get("cat") == "cuda_runtime"]
+    syncs = [e for e in runtime if e.get("name") in ("cudaStreamSynchronize", "cudaDeviceSynchronize")]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in runtime if "correlation" in e.get("args", {})}
+    launched = [(launch_ts[k["args"]["correlation"]], k["dur"]) for k in dev
+                if k.get("cat") == "kernel" and k.get("args", {}).get("correlation") in launch_ts]
+    stages = {k: dict(span_ms=0.0, kernel_ms=0.0, kernels=0, launched_kernel_ms=0.0, launched_kernels=0,
+                      host_ms=0.0, host_syncs=0) for k in stages}
     for e in events:
         st = stages.get(e.get("name"))
         if st is None or "dur" not in e:
@@ -148,6 +156,9 @@ def trace_summary(trace_path: str, wall_ms: float, views: int) -> dict:
         elif e.get("cat") == "user_annotation":
             st["host_ms"] += e["dur"] / 1e3
             st["host_syncs"] += sum(lo <= y["ts"] <= hi for y in syncs)
+            inside = [d for t, d in launched if lo <= t <= hi]
+            st["launched_kernel_ms"] += sum(inside) / 1e3
+            st["launched_kernels"] += len(inside)
     for st in stages.values():
         for k in st:
             st[k] /= views

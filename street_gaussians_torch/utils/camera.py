@@ -10,6 +10,7 @@ Port of street_gaussians_tpu/utils/camera.py. Conventions:
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -107,14 +108,17 @@ def make_camera(
     )
 
 
-def camera_rays(cam: Camera, downsample: int = 1) -> torch.Tensor:
+def camera_rays(
+    cam: Camera, downsample: int = 1, jitter: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """Per-pixel unit ray directions in world frame, [H, W, 3].
 
     downsample: > 1 returns a [ceil(H/ds), ceil(W/ds), 3] ray grid whose
     sample points sit at the centers of ds x ds pixel groups (continuous
-    coord (j + 0.5) * ds), the eval-path half-res sky grid. The
-    train-time jitter and the row band of tile-sharded rendering come
-    with later slices."""
+    coord (j + 0.5) * ds), the eval-path half-res sky grid.
+    jitter: optional [H, W, 2] sub-pixel offsets in [-0.5, 0.5) added to
+    the pixel centers (the train-time sky anti-aliasing); full grid only.
+    The row band of tile-sharded rendering comes with a later slice."""
     H, W = cam.H, cam.W
     dev = cam.K.device
     if downsample > 1:
@@ -125,9 +129,14 @@ def camera_rays(cam: Camera, downsample: int = 1) -> torch.Tensor:
         ys = (torch.arange(Hs, dtype=torch.float32, device=dev) + 0.5) * ds - 0.5
         x = xs[None, :].expand(Hs, Ws)
         y = ys[:, None].expand(Hs, Ws)
+        if jitter is not None:
+            raise ValueError("jitter is a train-time feature; downsample is eval-only")
     else:
         x = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
         y = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+        if jitter is not None:
+            x = x + jitter[..., 0]
+            y = y + jitter[..., 1]
     pix = torch.stack([x + 0.5, y + 0.5, torch.ones_like(x)], dim=-1)
     Kinv = torch.linalg.inv(cam.K)
     dirs_cam = pix @ Kinv.T

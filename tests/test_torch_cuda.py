@@ -1,19 +1,29 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card. Without a CUDA card every test here skips. This file imports no
-JAX, so it also runs where JAX is absent:
+card, and the kernel build's cache key. Without a CUDA card every test
+marked `cuda` skips. This file imports no JAX, so it also runs where JAX
+is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
 from chip_smoke import random_blend_case, random_expand_case
-from street_gaussians_torch.ops import fill, tile_raster2
+from street_gaussians_torch.kernels import _build
+from street_gaussians_torch.ops import fill, segsum, tile_raster2
 
 # kernel B: the two differ only in the order of f32 sums (see
 # tests/test_torch_blend.py)
 BLEND_TOL = dict(rtol=1e-5, atol=1e-5)
+# blend backward: each gradient row scaled by its largest |plain value|
+# (see tests/test_torch_blend_bwd.py); the plain version's prefix sums
+# are parallel scans on the card, so their rounding differs more
+BWD_ATOL_SCALED = 1e-4
+# segment sums: f32 sums of a few normal rows, in key order in the
+# kernel and in atomic order in the plain version's index_add_
+SEG_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture
@@ -55,3 +65,98 @@ def test_wrappers_reject_bad_inputs(cuda_device):
     z = torch.zeros(1, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
         tile_raster2.tile_blend_instances(p, z, z, 9, 1, 1)
+
+
+def _bwd_case(seed, dev):
+    case = random_blend_case(seed, dev, grid_x=5, grid_y=4, max_count=400)
+    T, F = case[5], case[3]
+    gen = torch.Generator().manual_seed(seed)
+    gout = torch.randn((T, 256, F + 1), generator=gen).to(dev)
+    out = tile_raster2.tile_blend_instances(*case)
+    return case, out, gout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_blend_backward_kernel_matches_plain(cuda_device, seed):
+    case, out, gout = _bwd_case(seed, cuda_device)
+    payload, starts, counts, F, gx, T = case
+    before = tile_raster2.tile_blend_bwd.launches
+    got = tile_raster2.tile_blend_bwd(payload, starts, counts, out, gout, F, gx, T)
+    torch.cuda.synchronize()
+    assert tile_raster2.tile_blend_bwd.launches == before + 1
+    want = tile_raster2.tile_blend_bwd_plain(payload, starts, counts, out, gout, F, gx, T)
+    for r in range(6 + F + 2):
+        scale = want[:, r].abs().max().clamp(min=1e-30)
+        torch.testing.assert_close(got[:, r] / scale, want[:, r] / scale, rtol=0, atol=BWD_ATOL_SCALED)
+    assert (got[:, 6 + F + 2:] == 0).all()
+
+
+def _seg_case(seed, dev, explicit):
+    rng = np.random.default_rng(seed)
+    N = 5000
+    keys = np.sort(rng.integers(0, N, size=20000)).astype(np.int32)
+    keys[-777:] = segsum.BIG  # padding rows
+    d = torch.as_tensor(rng.normal(size=(12, keys.size)).astype(np.float32), device=dev)
+    k = torch.as_tensor(keys, device=dev)
+    if not explicit:
+        return (d, k), dict(num_segments=N)
+    offs = np.sort(rng.integers(0, N, size=700)).astype(np.int32)
+    ends = np.minimum(np.append(offs[1:], N), offs + rng.integers(0, 30, size=700)).astype(np.int32)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return (d, k, t(offs), t(ends)), {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("explicit", [False, True])
+def test_segment_rowsum_kernel_matches_plain(cuda_device, explicit):
+    args, kw = _seg_case(3, cuda_device, explicit)
+    before = segsum.segment_rowsum.launches
+    got = segsum.segment_rowsum(*args, **kw)
+    torch.cuda.synchronize()
+    assert segsum.segment_rowsum.launches == before + 1
+    torch.testing.assert_close(got, segsum.segment_rowsum_plain(*args, **kw), **SEG_TOL)
+    # the kernel sums in key order, as the plain version does on the CPU
+    cpu = [a.cpu() for a in args]
+    torch.testing.assert_close(got.cpu(), segsum.segment_rowsum_plain(*cpu, **kw), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_backward_kernels_repeat_bit_for_bit(cuda_device):
+    case, out, gout = _bwd_case(4, cuda_device)
+    a = tile_raster2.tile_blend_bwd(*case[:3], out, gout, *case[3:])
+    b = tile_raster2.tile_blend_bwd(*case[:3], out, gout, *case[3:])
+    args, kw = _seg_case(5, cuda_device, False)
+    s1 = segsum.segment_rowsum(*args, **kw)
+    s2 = segsum.segment_rowsum(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(s1, s2)
+
+
+@pytest.mark.cuda
+def test_blend_autograd_function_takes_the_kernels(cuda_device):
+    case, out, gout = _bwd_case(6, cuda_device)
+    payload, starts, counts, F, gx, T = case
+    p = payload.clone().requires_grad_(True)
+    fwd, bwd = tile_raster2.tile_blend_instances.launches, tile_raster2.tile_blend_bwd.launches
+    y = tile_raster2.TileBlendInstances.apply(p, starts, counts, F, gx, T)
+    y.backward(gout)
+    torch.cuda.synchronize()
+    assert tile_raster2.tile_blend_instances.launches == fwd + 1
+    assert tile_raster2.tile_blend_bwd.launches == bwd + 1
+    assert torch.equal(y.detach(), out)
+    assert torch.equal(p.grad, tile_raster2.tile_blend_bwd(payload, starts, counts, out, gout, F, gx, T))
+
+
+def test_library_name_tracks_source_and_flags():
+    """The built library's name changes with the source text and with
+    the nvcc flags, so neither change can load a stale library."""
+    src = b"extern \"C\" int f() { return 0; }"
+    flags = _build.nvcc_flags("tile_blend")
+    base = _build.library_name(src, "tile_blend", flags)
+    assert base.startswith("libtile_blend-") and base.endswith(".so")
+    assert _build.library_name(src, "tile_blend", list(flags)) == base
+    assert _build.library_name(src + b" ", "tile_blend", flags) != base
+    assert _build.library_name(src, "tile_blend", flags + ["-lineinfo"]) != base
+    assert "-fmad=false" in flags and "-fmad=false" not in _build.nvcc_flags("segsum")
+    assert _build.library_path("segsum").startswith(_build.BUILD_DIR)

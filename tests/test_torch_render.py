@@ -199,14 +199,17 @@ def test_render_views_without_device_raises_when_cuda_absent(monkeypatch):
 
 def test_trace_summary_counts_busy_time_and_stages(tmp_path):
     """serve.trace_summary on a hand-made Chrome trace: overlapping
-    kernels count once, stage spans collect the kernels inside them."""
+    kernels count once, stage spans collect the kernels inside them, and
+    a host range collects the kernels launched while it was open."""
     events = [
-        {"cat": "kernel", "name": "k1", "ts": 0.0, "dur": 100.0},
-        {"cat": "kernel", "name": "k2", "ts": 50.0, "dur": 100.0},  # overlaps k1
+        {"cat": "kernel", "name": "k1", "ts": 0.0, "dur": 100.0, "args": {"correlation": 1}},
+        {"cat": "kernel", "name": "k2", "ts": 50.0, "dur": 100.0, "args": {"correlation": 2}},  # overlaps k1
         {"cat": "gpu_memset", "name": "set", "ts": 300.0, "dur": 50.0},
         {"cat": "gpu_user_annotation", "name": "binning", "ts": 0.0, "dur": 160.0},
         {"cat": "user_annotation", "name": "binning", "ts": -20.0, "dur": 40.0},
         {"cat": "cuda_runtime", "name": "cudaStreamSynchronize", "ts": 10.0, "dur": 5.0},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": -10.0, "dur": 1.0, "args": {"correlation": 1}},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 30.0, "dur": 1.0, "args": {"correlation": 2}},
         {"cat": "cpu_op", "name": "aten::add", "ts": 0.0, "dur": 1.0},
     ]
     path = tmp_path / "trace.json"
@@ -215,24 +218,39 @@ def test_trace_summary_counts_busy_time_and_stages(tmp_path):
     assert got["device_busy_ms"] == pytest.approx(0.2)
     assert got["idle_share"] == pytest.approx(0.8)
     b = got["per_view"]["binning"]
-    assert b == pytest.approx(dict(span_ms=0.08, kernel_ms=0.1, kernels=1.0, host_ms=0.02, host_syncs=0.5))
+    assert b == pytest.approx(dict(span_ms=0.08, kernel_ms=0.1, kernels=1.0, launched_kernel_ms=0.05,
+                                   launched_kernels=0.5, host_ms=0.02, host_syncs=0.5))
     assert got["per_view"]["sky"]["kernels"] == 0
     assert [k["name"] for k in got["top_kernels_per_view"]] == ["k1", "k2", "set"]
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (and the chip smoke script's
-    imports) loads no jax and nothing of street_gaussians_tpu."""
+    """Every module of the port (and chip_smoke.py) imports with jax,
+    jaxlib, yaml and street_gaussians_tpu made unimportable, and loads
+    none of them (the card's machine has no JAX and no PyYAML)."""
     code = (
-        "import sys, pkgutil, importlib, street_gaussians_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, 'street_gaussians_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "import sys, importlib.abc, pkgutil, importlib\n"
+        "BLOCKED = ('jax', 'jaxlib', 'yaml', 'street_gaussians_tpu')\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import street_gaussians_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'street_gaussians_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'street_gaussians_tpu')]\n"
-        "print(len(sys.modules)); assert not bad, bad\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
+        "assert not bad, bad\n"
+        "print(' '.join(names))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120
     )
     assert r.returncode == 0, r.stderr
+    imported = set(r.stdout.split())
+    for mod in ("train_lib", "train", "config", "optim.adam", "optim.densify", "optim.schedule",
+                "ops.segsum", "utils.losses"):
+        assert f"street_gaussians_torch.{mod}" in imported, mod
