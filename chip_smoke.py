@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the four hand-written CUDA kernels from
-   street_gaussians_torch/csrc (one nvcc each, all started together);
+2. builds the hand-written CUDA kernels from street_gaussians_torch/csrc
+   (seven sources holding eight kernels; one nvcc each, all started
+   together);
 3. holds each forward kernel against its plain PyTorch version on the
    card, on a random ragged case and on the bench frame's own inputs,
    and the whole serving path on a small scene against the CPU path;
@@ -21,9 +22,19 @@
    10 timed steps, which must be finite, drop no instance, go through
    all four kernels and repeat bit for bit; then densify, reset and one
    more step;
-6. times each kernel, its plain version and a one-call PyTorch
-   yardstick, computes its bound, and prints one `kernels` JSON line;
-7. prints {"ok": true, "device": {...}} as the last line.
+6. times kernels 1 to 4, their plain versions and a one-call PyTorch
+   yardstick, and computes their bounds;
+7. the dense-table layout and the blend probe: holds the table blend's
+   forward and backward kernels and the probe's floor and tensor-core
+   variants against their plain versions on a random case and on the
+   bench frame's own inputs; runs the table-against-instance parity
+   check (script.parity_check) on the bench frame and at its own
+   880x1280 size, forward and gradients, which must agree, drop no
+   instance and go through the table kernels and the segmented row-sum;
+   runs the probe (script.probe_kernel) on the bench frame's payload;
+   times the four and computes their bounds;
+8. prints one `kernels` JSON line with all eight kernels;
+9. prints {"ok": true, "device": {...}} as the last line.
 
 Any failure raises (exit code != 0). Without CUDA, or without the rest
 of the repository beside it, it fails before printing a result.
@@ -70,6 +81,13 @@ BWD_FLIP_TOL = 3e-2
 # the card): |d| <= SEG_RTOL * (sum of the segment's |rows|), the f32
 # rounding of a sum in another order
 SEG_RTOL = 1e-5
+# the probe's floor against its plain version: sums of a block's 1024
+# values and of a run's blocks in another order, |d| <= FLOOR_RTOL * (the
+# same sums of |values|)
+FLOOR_RTOL = 1e-5
+# iterations of the parity check's and the probe's own timing loops
+PARITY_ITERS = 3
+PROBE_ITERS = 10
 # whole-step gradients and parameters, card against CPU: the rules of
 # tests/test_torch_train.py (see grads_close and params_close)
 GRAD_ATOL_SCALED = 1e-4
@@ -113,18 +131,12 @@ def log(*args):
     print(*args, flush=True)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of fn() over reps calls, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over reps calls after one warm-up call,
+    by CUDA events."""
+    from street_gaussians_torch._device import time_ms
+
+    return time_ms(fn, reps, torch.device("cuda"))
 
 
 def compare_blend(got: torch.Tensor, ref: torch.Tensor, F: int, what: str) -> float:
@@ -189,6 +201,28 @@ def compare_segsum(got, ref, abs_sum, what: str) -> float:
     return max_err
 
 
+def compare_floor(got, ref, abs_ref, what: str) -> float:
+    """The probe's floor against its plain version (see FLOOR_RTOL)."""
+    d = (got - ref).abs()
+    bad = int((d > FLOOR_RTOL * abs_ref + 1e-30).sum())
+    max_err = float(d.max())
+    log(f"[check] {what}: max_abs_err {max_err:.3e} (largest |sum| {float(ref.abs().max()):.3e}); "
+        f"values beyond {FLOOR_RTOL} x sum|values|: {bad} of {d.numel()}")
+    if bad or not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: probe_floor kernel disagrees with its plain version")
+    return max_err
+
+
+def run_blocks(tile_start, tile_count, num_blocks: int) -> int:
+    """How many distinct payload blocks the tiles' runs touch."""
+    s = tile_start.long() // 128
+    nb = torch.where(tile_count > 0, (tile_start.long() % 128 + tile_count.long() + 127) // 128, 0)
+    delta = torch.zeros(num_blocks + 1, dtype=torch.int64, device=tile_start.device)
+    delta.index_add_(0, s, (nb > 0).long())
+    delta.index_add_(0, s + nb, -(nb > 0).long())
+    return int((torch.cumsum(delta, 0)[:num_blocks] > 0).sum())
+
+
 def random_expand_case(seed: int, N: int, dev):
     rng = np.random.default_rng(seed)
     cnt = rng.integers(0, 9, N).astype(np.int32)
@@ -235,6 +269,38 @@ def random_blend_case(seed: int, dev, grid_x=40, grid_y=30, F=4, max_count=700, 
     return t(payload), t(starts), t(counts), F, grid_x, T
 
 
+def random_table_case(seed: int, dev, grid_x=40, grid_y=30, F=4, K=768, counts=None, opacity_hi=0.99):
+    """A dense table of random screen-space Gaussians (about a fifth of
+    the tiles empty unless `counts` is given; features: rgb in [0, 1)
+    then depths in [1, 50)). Slots at and beyond a tile's count have
+    opacity 0 and garbage in every other row, which the blend must
+    ignore. Returns tile_raster.tile_blend's args."""
+    from street_gaussians_torch.ops.tile_raster2 import payload_rows
+
+    rng = np.random.default_rng(seed)
+    T = grid_x * grid_y
+    if counts is None:
+        counts = rng.integers(0, K + 1, T)
+        counts[rng.uniform(size=T) < 0.2] = 0
+    counts = np.asarray(counts, np.int32)
+    tile = np.arange(T)[:, None]
+    table = np.zeros((T, payload_rows(F), K), np.float32)
+    table[:, 0] = (tile % grid_x) * 16 + rng.uniform(-8, 24, (T, K))
+    table[:, 1] = (tile // grid_x) * 16 + rng.uniform(-8, 24, (T, K))
+    table[:, 2] = rng.uniform(0.01, 0.3, (T, K))
+    table[:, 3] = rng.uniform(-0.05, 0.05, (T, K))
+    table[:, 4] = rng.uniform(0.01, 0.3, (T, K))
+    table[:, 5] = rng.uniform(0.02, opacity_hi, (T, K))
+    table[:, 6:5 + F] = rng.uniform(0, 1, (T, F - 1, K))
+    table[:, 5 + F] = rng.uniform(1, 50, (T, K))
+    empty = np.arange(K)[None, :] >= counts[:, None]
+    garbage = rng.normal(size=table.shape).astype(np.float32) * 100.0
+    table = np.where(empty[:, None, :], garbage, table)
+    table[:, 5][empty] = 0.0
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)  # noqa: E731
+    return t(table), t(counts), F, grid_x
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -258,8 +324,8 @@ def main() -> int:
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    built = _build.build(["fill", "tile_blend", "tile_blend_bwd", "segsum"])
-    log(f"[build] {time.perf_counter() - t0:.2f} s wall for the four kernels")
+    built = _build.build(_build.ALL_SOURCES)
+    log(f"[build] {time.perf_counter() - t0:.2f} s wall for the {len(_build.ALL_SOURCES)} sources (8 kernels)")
     for name, info in built.items():
         ptxas = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "Compiling" in ln]
         log(f"[build] {name}.cu {info['seconds']:.2f} s; " + " | ".join(ptxas))
@@ -390,24 +456,31 @@ def main() -> int:
     # pixel evaluates, 9 + 2F more for every pair it blends
     b_ops = 17 * evaluated + (9 + 2 * F) * blended
 
+    # ---- 7. the dense-table layout and the probe ----
+    table_kernels = table_phase(dev, screen, H, W, b_args, b_ref, b_plain, bound(b_bytes, b_ops))
+
     kernels = []
+    train = {"path": f"{TRAIN_STEPS} train steps"}
     for name, src, rep, n, err, ms, plain, lib, (bms, by), extra in (
         ("expand_runs", "street_gaussians_torch/csrc/fill.cu",
          "street_gaussians_tpu/ops/fill.py:55", t["launches"]["expand_runs"], err_a,
-         a_ms, a_plain, a_lib, bound(a_bytes, a_ops), {"serve_launches": serve_launches["expand_runs"]}),
+         a_ms, a_plain, a_lib, bound(a_bytes, a_ops),
+         {**train, "serve_launches": serve_launches["expand_runs"]}),
         ("tile_blend_instances", "street_gaussians_torch/csrc/tile_blend.cu",
          "street_gaussians_tpu/ops/tile_raster2.py:318", t["launches"]["tile_blend_instances"], err_b,
          b_ms, b_plain, None, bound(b_bytes, b_ops),
-         {"serve_launches": serve_launches["tile_blend_instances"]}),
-        *t["kernels"],
+         {**train, "serve_launches": serve_launches["tile_blend_instances"]}),
+        *((*k[:-1], {**train, **k[-1]}) for k in t["kernels"]),
+        *table_kernels,
     ):
+        if "train" in extra["path"]:
+            extra = {**extra, "launches_per_step": n / TRAIN_STEPS}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": n, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
-                        "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": lib,
-                        "launches_per_step": n / TRAIN_STEPS, **extra})
+                        "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": lib, **extra})
         log(f"[kernel] {name}: {ms:.4f} ms (plain {plain:.4f} ms, library "
             f"{'n/a' if lib is None else f'{lib:.4f} ms'}), bound {bms:.4f} ms by {by}; "
-            f"{n} launches in {TRAIN_STEPS} train steps")
+            f"{n} launches in {extra['path']}")
     log(f"[kernel] bench-frame counts: expand_runs bytes {a_bytes}, compares {a_ops}; "
         f"tile_blend bytes {b_bytes}, f32 ops {b_ops}")
 
@@ -416,6 +489,142 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def table_phase(dev, screen, H, W, b_args, b_ref, b_plain, b_bound) -> list:
+    """Step 7. `screen`, `b_args` (tile_blend_instances' arguments),
+    `b_ref` (its plain output), `b_plain` (the plain version's ms) and
+    `b_bound` are the bench frame's, from steps 3b and 6. Returns the
+    four new kernels' entries for the `kernels` line."""
+    from street_gaussians_torch.ops import rasterize, segsum, tile_raster, tile_raster2
+    from street_gaussians_torch.script import parity_check, probe_kernel
+
+    # ---- 7a. random cases ----
+    case = random_table_case(2, dev)
+    payload, counts, F, gx = case
+    T, K = payload.shape[0], payload.shape[2]
+    out = tile_raster.tile_blend(*case)
+    err_tf = compare_blend(out, tile_raster.tile_blend_plain(*case), F,
+                           f"table blend random ({T} tiles, K={K})")
+    gen = torch.Generator().manual_seed(13)
+    gout = torch.randn((T, 256, F + 1), generator=gen).to(dev)
+    live = (torch.arange(K, device=dev)[None, :] < counts[:, None]).reshape(-1)
+    err_tb = compare_blend_bwd(
+        tile_raster.tile_blend_bwd(payload, counts, out, gout, F, gx),
+        tile_raster.tile_blend_bwd_plain(payload, counts, out, gout, F, gx),
+        live, F, f"table blend backward random ({T} tiles, K={K})")
+    rcase = random_blend_case(1, dev)
+    err_floor = compare_floor(
+        probe_kernel.probe_floor(*rcase), probe_kernel.probe_floor_plain(*rcase),
+        probe_kernel.probe_floor_plain(rcase[0].abs(), *rcase[1:]), "probe_floor random ragged (1200 tiles)")
+    err_mma = compare_blend(probe_kernel.probe_blend_mma(*rcase), tile_raster2.tile_blend_plain(*rcase),
+                            rcase[3], "probe_blend_mma random ragged (1200 tiles)")
+    del case, payload, out, gout, rcase
+
+    # ---- 7b. the bench frame's own inputs ----
+    icap = 2**21
+    with torch.no_grad():
+        max_count = parity_check.largest_tile_count(screen, H, W, icap)
+        K = max(1024, -(-max_count // 128) * 128)
+        bi = rasterize.blend_inputs(
+            screen, H, W, config=rasterize.RasterizeConfig(K, icap, layout="table"))
+        if int(bi.bins.overflow) != 0:
+            raise AssertionError(f"bench table: {int(bi.bins.overflow)} instances dropped at K={K}")
+        F, gx, T = bi.num_features, bi.grid_x, bi.grid_x * bi.grid_y
+        t_args = (bi.payload, bi.bins.tile_count, F, gx)
+        t_out = tile_raster.tile_blend(*t_args)
+        t_ref, work = tile_raster.tile_blend_plain(*t_args, return_work=True)
+        err_tf = max(err_tf, compare_blend(t_out, t_ref, F, f"table blend bench frame ({T} tiles, K={K})"))
+        del t_ref
+        gen = torch.Generator(device=dev).manual_seed(14)
+        gout = torch.randn((T, 256, F + 1), generator=gen, device=dev)
+        bwd_args = (bi.payload, bi.bins.tile_count, t_out, gout, F, gx)
+        live = (torch.arange(K, device=dev)[None, :] < bi.bins.tile_count[:, None]).reshape(-1)
+        err_tb = max(err_tb, compare_blend_bwd(
+            tile_raster.tile_blend_bwd(*bwd_args), tile_raster.tile_blend_bwd_plain(*bwd_args),
+            live, F, f"table blend backward bench frame ({T} tiles, K={K})"))
+        n_live, evaluated, blended = int(live.sum()), int(work["evaluated"]), int(work["blended"])
+        log(f"[check] bench table: largest tile {max_count}, K={K}, {n_live} live slots, "
+            f"{int(work['chunks'])} chunks read, {evaluated} pixel-slot pairs evaluated, {blended} blended")
+        tf_ms = cuda_ms(lambda: tile_raster.tile_blend(*t_args), 20)
+        tf_plain = cuda_ms(lambda: tile_raster.tile_blend_plain(*t_args), 1)
+        tb_ms = cuda_ms(lambda: tile_raster.tile_blend_bwd(*bwd_args), 10)
+        tb_plain = cuda_ms(lambda: tile_raster.tile_blend_bwd_plain(*bwd_args), 1)
+        # f32 operations (exp counted as one): 17 for every pair a pixel
+        # evaluates, as the instance blend; 6 + 2F more for a pair it
+        # blends (no log1p in the product form); the backward adds the
+        # gradient terms (30 + 3F) and the pair's share of the 256-pixel
+        # sums (8 + F)
+        tf_bound = bound(4 * (n_live * (6 + F) + T * 256 * (F + 1) + T),
+                         17 * evaluated + (6 + 2 * F) * blended)
+        tb_bound = bound(4 * (n_live * (6 + F) + 2 * T * 256 * (F + 1) + T + bi.payload.numel()),
+                         17 * evaluated + (44 + 6 * F) * blended)
+        del bi, t_args, t_out, gout, bwd_args, live
+
+        floor_out = probe_kernel.probe_floor(*b_args)
+        err_floor = max(err_floor, compare_floor(
+            floor_out, probe_kernel.probe_floor_plain(*b_args),
+            probe_kernel.probe_floor_plain(b_args[0].abs(), *b_args[1:]), "probe_floor bench frame"))
+        mma_out = probe_kernel.probe_blend_mma(*b_args)
+        err_mma = max(err_mma, compare_blend(mma_out, b_ref, b_args[3], "probe_blend_mma bench frame"))
+        compare_blend(mma_out, tile_raster2.tile_blend_instances(*b_args), b_args[3],
+                      "probe variant against the current kernel, bench frame")
+        del floor_out, mma_out
+        floor_ms = cuda_ms(lambda: probe_kernel.probe_floor(*b_args), 20)
+        floor_plain = cuda_ms(lambda: probe_kernel.probe_floor_plain(*b_args), 5)
+        mma_ms = cuda_ms(lambda: probe_kernel.probe_blend_mma(*b_args), 10)
+        blocks = run_blocks(b_args[1], b_args[2], b_args[0].shape[0])
+        T, F = b_args[5], b_args[3]
+        floor_bound = bound(4 * (blocks * 8 * 128 + T * 256 * (F + 1) + 2 * T), 0)
+    torch.cuda.empty_cache()
+
+    # ---- 7c. the table path: parity with the instance layout ----
+    counters = {"tile_blend_table": tile_raster.tile_blend, "tile_blend_table_bwd": tile_raster.tile_blend_bwd,
+                "segment_rowsum": segsum.segment_rowsum,
+                "tile_blend_instances": tile_raster2.tile_blend_instances,
+                "tile_blend_bwd": tile_raster2.tile_blend_bwd}
+    for k in counters.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = parity_check.compare_layouts(screen, H, W, 1024, icap, iters=PARITY_ITERS, log=log)
+    launches = {name: k.launches for name, k in counters.items()}
+    res["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    # per layout: forward 2 + PARITY_ITERS, forward + backward 1 + (1 + PARITY_ITERS)
+    if (launches["tile_blend_table"] != 2 * PARITY_ITERS + 4 or launches["tile_blend_table_bwd"] != PARITY_ITERS + 2
+            or launches["segment_rowsum"] != 2 * (PARITY_ITERS + 2)):
+        raise AssertionError(f"table parity path launches {launches}")
+    log(f"[parity] bench frame {W}x{H}: {json.dumps(res)}; launches {launches}")
+    torch.cuda.empty_cache()
+    own = parity_check.parity_check(device=dev, iters=PARITY_ITERS, log=log)
+    log(f"[parity] the check's own scene 1280x880: {json.dumps(own)}")
+    torch.cuda.empty_cache()
+
+    # ---- 7d. the probe ----
+    probe_kernel.probe_floor.launches = probe_kernel.probe_blend_mma.launches = 0
+    probe = probe_kernel.run_probe(*b_args, iters=PROBE_ITERS, log=log)
+    probe_launches = {"probe_floor": probe_kernel.probe_floor.launches,
+                      "probe_blend_mma": probe_kernel.probe_blend_mma.launches}
+    if probe_launches["probe_floor"] != PROBE_ITERS + 1 or probe_launches["probe_blend_mma"] != PROBE_ITERS + 2:
+        raise AssertionError(f"probe path launches {probe_launches}")
+    log(f"[probe] bench frame: {json.dumps(probe)}; launches {probe_launches}")
+
+    parity = {"path": "the table parity check", "parity_fwd_ms": res["fwd_ms"],
+              "parity_fwd_bwd_ms": res["fwd_bwd_ms"], "tile_capacity": res["tile_capacity"]}
+    in_probe = {"path": "the probe", "probe_ms": probe}
+    return [
+        ("tile_blend_table", "street_gaussians_torch/csrc/tile_blend_table.cu",
+         "street_gaussians_tpu/ops/tile_raster.py:167", launches["tile_blend_table"], err_tf,
+         tf_ms, tf_plain, None, tf_bound, parity),
+        ("tile_blend_table_bwd", "street_gaussians_torch/csrc/tile_blend_table_bwd.cu",
+         "street_gaussians_tpu/ops/tile_raster.py:214", launches["tile_blend_table_bwd"], err_tb,
+         tb_ms, tb_plain, None, tb_bound, parity),
+        ("probe_floor", "street_gaussians_torch/csrc/probe_blend.cu",
+         "script/probe_kernel.py:60", probe_launches["probe_floor"], err_floor,
+         floor_ms, floor_plain, None, floor_bound, in_probe),
+        ("probe_blend_mma", "street_gaussians_torch/csrc/probe_blend.cu",
+         "script/probe_kernel.py:82", probe_launches["probe_blend_mma"], err_mma,
+         mma_ms, b_plain, None, b_bound, in_probe),
+    ]
 
 
 def bound(nbytes, ops):

@@ -2,6 +2,9 @@
 
 from __future__ import annotations
 
+import time
+from typing import Callable
+
 import torch
 
 
@@ -16,3 +19,22 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def time_ms(fn: Callable[[], object], iters: int, device: torch.device) -> float:
+    """Mean ms of fn() over `iters` calls after one warm-up call: CUDA
+    events on a card, the host clock on the CPU."""
+    fn()
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / iters
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(device)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / iters

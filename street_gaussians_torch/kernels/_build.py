@@ -29,7 +29,15 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # per-source flags: the blend rounds every product and sum on its own,
 # as its plain PyTorch version does, so the two differ only in the
 # order of their sums
-EXTRA_FLAGS = {"tile_blend": ["-fmad=false"], "tile_blend_bwd": ["-fmad=false"]}
+EXTRA_FLAGS = {
+    name: ["-fmad=false"]
+    for name in ("tile_blend", "tile_blend_bwd", "tile_blend_table", "tile_blend_table_bwd", "probe_blend")
+}
+# every source under csrc/, for a caller that builds them all at once
+ALL_SOURCES = (
+    "fill", "tile_blend", "tile_blend_bwd", "segsum",
+    "tile_blend_table", "tile_blend_table_bwd", "probe_blend",
+)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

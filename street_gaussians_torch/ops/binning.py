@@ -1,13 +1,15 @@
-"""Tile binning: per-Gaussian tile rects to depth-ordered, ragged
-per-tile runs of one sorted instance array.
+"""Tile binning: per-Gaussian tile rects to depth-ordered per-tile
+lists, as ragged runs of one sorted instance array
+(`bin_gaussians_instances`) or as a dense [num_tiles, tile_capacity]
+table (`bin_gaussians`).
 
-Port of street_gaussians_tpu/ops/binning.py:199-446
-(`bin_gaussians_instances`). Order and integer outputs are the JAX
-package's exactly: Gaussians are depth-sorted once (stable, by the
-float32 bits of the depth), instances are enumerated in depth-rank
-order through the run expansion (ops/fill.expand_runs, kernel A), and
-one stable sort by tile id gives tile-major, depth-minor,
-original-index-tertiary order.
+Port of street_gaussians_tpu/ops/binning.py. Order and integer outputs
+are the JAX package's exactly: Gaussians are depth-sorted once (stable,
+by the float32 bits of the depth), instances are enumerated in
+depth-rank order through the run expansion (ops/fill.expand_runs,
+kernel A), and one stable sort by tile id gives tile-major, depth-minor,
+original-index-tertiary order. Both layouts share that front half
+(`_sorted_instances`); only the instance layout has the corner cull.
 """
 
 from __future__ import annotations
@@ -27,6 +29,17 @@ class InstanceBinning(NamedTuple):
     inst_gauss: torch.Tensor  # [S] int32 gaussian index per sorted slot, -1 dropped
     tile_count: torch.Tensor  # [num_tiles] int32 valid instances per tile (clamped)
     tile_start: torch.Tensor  # [num_tiles] int32 first sorted row of the tile's run
+    num_instances: torch.Tensor  # scalar: total generated (pre-drop)
+    overflow: torch.Tensor  # scalar: dropped instances (either cause)
+    overflow_instance: torch.Tensor  # scalar: dropped by instance_capacity
+    overflow_tile: torch.Tensor  # scalar: dropped by tile_capacity
+
+
+class TileBinning(NamedTuple):
+    """Dense table: row t lists tile t's Gaussians front to back."""
+
+    tile_gauss: torch.Tensor  # [num_tiles, tile_capacity] int32 gaussian index, -1 empty
+    tile_count: torch.Tensor  # [num_tiles] int32 valid entries per tile (clamped)
     num_instances: torch.Tensor  # scalar: total generated (pre-drop)
     overflow: torch.Tensor  # scalar: dropped instances (either cause)
     overflow_instance: torch.Tensor  # scalar: dropped by instance_capacity
@@ -104,19 +117,20 @@ def expand_inputs(
     return ExpandInputs(torch.stack(chans, dim=0), offs, total, 1 + len(ids))
 
 
-def bin_gaussians_instances(
-    screen: GaussianScreenData,
-    grid_x: int,
-    grid_y: int,
-    instance_capacity: int,
-    tile_capacity: int,
-    corner_cull: bool = True,
-) -> InstanceBinning:
-    """Instance-major binning with per-tile contiguous ragged runs.
+class SortedInstances(NamedTuple):
+    """The (tile, depth)-sorted instance array before any capacity."""
 
-    corner_cull: drop instances whose maximum possible alpha anywhere in
-    their tile is provably < 1/255 (the blend's own keep test zeroes
-    exactly these), with the JAX package's safety margins."""
+    tile: torch.Tensor  # [S] int32 tile id per sorted row, num_tiles when dead
+    gauss: torch.Tensor  # [S] int32 gaussian index per sorted row, -1 when dead
+    tile_start: torch.Tensor  # [num_tiles + 1] int32 first row of each tile's run
+    total: torch.Tensor  # scalar int32: instances generated
+
+
+def _sorted_instances(
+    screen: GaussianScreenData, grid_x: int, grid_y: int, instance_capacity: int, corner_cull: bool
+) -> SortedInstances:
+    """Shared front half of both layouts: depth sort, run expansion, the
+    optional corner cull and one stable tile sort."""
     dev = screen.depth.device
     i32 = torch.int32
     num_tiles = grid_x * grid_y
@@ -167,27 +181,74 @@ def bin_gaussians_instances(
     queries = torch.arange(num_tiles + 1, dtype=i32, device=dev)
     tile_start = torch.searchsorted(st, queries, side="left").to(i32)
     tile_start = torch.clamp(tile_start, max=S)
+    return SortedInstances(st, sg, tile_start, total)
+
+
+def bin_gaussians_instances(
+    screen: GaussianScreenData,
+    grid_x: int,
+    grid_y: int,
+    instance_capacity: int,
+    tile_capacity: int,
+    corner_cull: bool = True,
+) -> InstanceBinning:
+    """Instance-major binning with per-tile contiguous ragged runs.
+
+    corner_cull: drop instances whose maximum possible alpha anywhere in
+    their tile is provably < 1/255 (the blend's own keep test zeroes
+    exactly these), with the JAX package's safety margins."""
+    dev = screen.depth.device
+    i32 = torch.int32
+    num_tiles = grid_x * grid_y
+    S = instance_capacity
+    st, sg, tile_start, total = _sorted_instances(screen, grid_x, grid_y, S, corner_cull)
     counts_all = tile_start[1:] - tile_start[:-1]
-    clamped = torch.clamp(counts_all, max=tile_capacity)
 
     if tile_capacity >= instance_capacity:
         keep = st < num_tiles
     else:
+        s = torch.arange(S, dtype=i32, device=dev)
         prev_t = torch.cat([torch.full((1,), -1, dtype=i32, device=dev), st[:-1]])
         boundary = (st != prev_t) & (st < num_tiles)
         running_start = torch.cummax(torch.where(boundary, s, 0), dim=0).values
         rank = s - running_start
         keep = (st < num_tiles) & (rank < tile_capacity)
     inst_gauss = torch.where(keep, sg, -1)
-
-    instance_overflow = torch.clamp(total - instance_capacity, min=0)
-    tile_overflow = torch.clamp(counts_all - tile_capacity, min=0).sum(dtype=i32)
     return InstanceBinning(
-        inst_gauss=inst_gauss,
-        tile_count=clamped,
-        tile_start=tile_start[:-1],
+        inst_gauss, tile_start=tile_start[:-1], **_counts(counts_all, total, S, tile_capacity)
+    )
+
+
+def _counts(counts_all, total, instance_capacity: int, tile_capacity: int) -> dict:
+    """The clamped per-tile counts and the overflow counters, the same
+    in both layouts."""
+    instance_overflow = torch.clamp(total - instance_capacity, min=0)
+    tile_overflow = torch.clamp(counts_all - tile_capacity, min=0).sum(dtype=torch.int32)
+    return dict(
+        tile_count=torch.clamp(counts_all, max=tile_capacity),
         num_instances=total,
         overflow=instance_overflow + tile_overflow,
         overflow_instance=instance_overflow,
         overflow_tile=tile_overflow,
     )
+
+
+def bin_gaussians(
+    screen: GaussianScreenData,
+    grid_x: int,
+    grid_y: int,
+    instance_capacity: int,
+    tile_capacity: int,
+) -> TileBinning:
+    """Dense [num_tiles, tile_capacity] table of each tile's nearest
+    Gaussians, front to back (-1 in empty slots). No corner cull. The
+    table is a gather from the sorted instance array,
+    tile_gauss[t, r] = gauss[tile_start[t] + r] for r < count, where the
+    JAX package scatters."""
+    S = instance_capacity
+    _, sg, tile_start, total = _sorted_instances(screen, grid_x, grid_y, S, corner_cull=False)
+    counts = _counts(tile_start[1:] - tile_start[:-1], total, S, tile_capacity)
+    r = torch.arange(tile_capacity, dtype=torch.int32, device=sg.device)
+    rows = torch.clamp(tile_start[:-1, None] + r[None, :], max=S - 1).to(torch.int64)
+    tile_gauss = torch.where(r[None, :] < counts["tile_count"][:, None], sg[rows], -1)
+    return TileBinning(tile_gauss, **counts)

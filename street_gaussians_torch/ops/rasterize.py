@@ -1,18 +1,21 @@
 """Rasterization: preprocess output -> binning -> payload gather ->
 tile blend -> image assembly + background compositing.
 
-Port of street_gaussians_tpu/ops/rasterize.py on the instance layout.
-The payload gather and the tile blend are autograd Functions with the
-JAX package's scatter-free gradients: the blend's is the backward
-kernel (ops/tile_raster2.py), the gather's a stable sort of the
-cotangent rows by Gaussian id and a segmented row-sum (ops/segsum.py).
-The dense-table layout ("table") is not ported yet.
+Port of street_gaussians_tpu/ops/rasterize.py, both layouts: the
+instance-major payload (ops/tile_raster2.py, the main path) and the
+dense per-tile table (ops/tile_raster.py, an independent second layout
+that checks the first). The payload gather and the tile blend are
+autograd Functions with scatter-free gradients: the blend's is its
+backward kernel, the gather's a stable sort of the cotangent rows by
+Gaussian id and a segmented row-sum (ops/segsum.py). The JAX package
+leaves the table gather's gradient to XLA's scatter-add; here it takes
+the same sort and row-sum as the instance layout's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Union
 
 import torch
 from torch.profiler import record_function
@@ -20,6 +23,7 @@ from torch.profiler import record_function
 from street_gaussians_torch.ops import binning as binning_lib
 from street_gaussians_torch.ops.preprocess import TILE, GaussianScreenData
 from street_gaussians_torch.ops.segsum import BIG, segment_rowsum
+from street_gaussians_torch.ops.tile_raster import TileBlend
 from street_gaussians_torch.ops.tile_raster2 import (
     CHUNK,
     TileBlendInstances,
@@ -33,9 +37,13 @@ class RasterizeConfig:
 
     tile_capacity: int = 1024  # max gaussians blended per tile
     instance_capacity: int = 2**20  # max (gaussian, tile) instances
-    layout: str = "instance"  # only the instance-major payload is ported
-    # drop (gaussian, tile) instances whose max possible alpha in the
-    # tile is provably < 1/255 (binning.bin_gaussians_instances)
+    # "instance": packed instance-major payload (tile_raster2);
+    # "table": dense [num_tiles, tile_capacity] payload (tile_raster),
+    # tile_capacity a multiple of 128
+    layout: str = "instance"
+    # instance layout only: drop (gaussian, tile) instances whose max
+    # possible alpha in the tile is provably < 1/255
+    # (binning.bin_gaussians_instances)
     corner_cull: bool = True
 
 
@@ -90,9 +98,30 @@ def build_payload_blocks(src: torch.Tensor, inst_gauss: torch.Tensor) -> torch.T
     return BuildPayloadBlocks.apply(src, inst_gauss)
 
 
+class BuildPayloadTable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, src, tile_gauss):
+        ctx.save_for_backward(tile_gauss)
+        ctx.n = src.shape[0]
+        rows = src[torch.clamp(tile_gauss, min=0).to(torch.int64)]  # [T, K, C]
+        return torch.where((tile_gauss >= 0)[:, :, None], rows, 0.0).transpose(1, 2).contiguous()
+
+    @staticmethod
+    def backward(ctx, d_table):
+        (tile_gauss,) = ctx.saved_tensors
+        return payload_grad(d_table, tile_gauss.reshape(-1), ctx.n), None
+
+
+def build_payload_table(src: torch.Tensor, tile_gauss: torch.Tensor) -> torch.Tensor:
+    """Gather [N, C] rows into the dense table [num_tiles, C, K] (empty
+    slots zero, so their opacity is 0), with the scatter-free gradient
+    `payload_grad` over the table's T * K slots."""
+    return BuildPayloadTable.apply(src, tile_gauss)
+
+
 class BlendInputs(NamedTuple):
-    payload: torch.Tensor  # [NB + 1, c_pad, 128]
-    bins: binning_lib.InstanceBinning
+    payload: torch.Tensor  # [NB + 1, c_pad, 128], or [num_tiles, c_pad, K] for the table
+    bins: Union[binning_lib.InstanceBinning, binning_lib.TileBinning]
     num_features: int
     grid_x: int
     grid_y: int
@@ -109,8 +138,9 @@ def blend_inputs(
     """Binning and the payload: everything the tile blend reads.
     absgrad_dummy: optional [N, 2] zeros in the payload's AbsGS rows
     (see `rasterize`)."""
-    if config.layout != "instance":
-        raise NotImplementedError(f"layout={config.layout!r} is not ported yet")
+    if config.layout not in ("instance", "table"):
+        raise ValueError(f"layout must be 'instance' or 'table', got {config.layout!r}")
+    table = config.layout == "table"
     grid_x, grid_y = _grid_dims(H, W)
     feats = [screen.rgb, screen.depth[:, None]]
     if extra_features is not None:
@@ -119,10 +149,15 @@ def blend_inputs(
     F = features.shape[-1]
     c_pad = payload_rows(F)
     with record_function("binning"):
-        bins = binning_lib.bin_gaussians_instances(
-            screen, grid_x, grid_y, config.instance_capacity, config.tile_capacity,
-            corner_cull=config.corner_cull,
-        )
+        if table:
+            bins = binning_lib.bin_gaussians(
+                screen, grid_x, grid_y, config.instance_capacity, config.tile_capacity
+            )
+        else:
+            bins = binning_lib.bin_gaussians_instances(
+                screen, grid_x, grid_y, config.instance_capacity, config.tile_capacity,
+                corner_cull=config.corner_cull,
+            )
     with record_function("payload"):
         # one [N, c_pad] source: (mx, my, ca, cb, cc, op, feats..., AbsGS
         # rows, zero rows)
@@ -131,7 +166,10 @@ def blend_inputs(
             cols.append(absgrad_dummy)
         src = torch.cat(cols, dim=-1)
         src = torch.nn.functional.pad(src, (0, c_pad - src.shape[1]))
-        payload = build_payload_blocks(src, bins.inst_gauss)
+        if table:
+            payload = build_payload_table(src, bins.tile_gauss)
+        else:
+            payload = build_payload_blocks(src, bins.inst_gauss)
     return BlendInputs(payload, bins, F, grid_x, grid_y)
 
 
@@ -156,9 +194,12 @@ def rasterize(
     bi = blend_inputs(screen, H, W, extra_features, config, absgrad_dummy)
     F, grid_x, grid_y = bi.num_features, bi.grid_x, bi.grid_y
     with record_function("tile_blend"):
-        out = TileBlendInstances.apply(
-            bi.payload, bi.bins.tile_start, bi.bins.tile_count, F, grid_x, grid_x * grid_y
-        )
+        if config.layout == "table":
+            out = TileBlend.apply(bi.payload, bi.bins.tile_count, F, grid_x)
+        else:
+            out = TileBlendInstances.apply(
+                bi.payload, bi.bins.tile_start, bi.bins.tile_count, F, grid_x, grid_x * grid_y
+            )
     # tile-major [T, 256, F+1] -> [H, W, F+1]
     img = (
         out.reshape(grid_y, grid_x, TILE, TILE, F + 1)

@@ -6,13 +6,16 @@ is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import random_blend_case, random_expand_case
+from chip_smoke import compare_blend, random_blend_case, random_expand_case, random_table_case
 from street_gaussians_torch.kernels import _build
-from street_gaussians_torch.ops import fill, segsum, tile_raster2
+from street_gaussians_torch.ops import fill, rasterize, segsum, tile_raster, tile_raster2
+from street_gaussians_torch.script import probe_kernel
 
 # kernel B: the two differ only in the order of f32 sums (see
 # tests/test_torch_blend.py)
@@ -146,6 +149,94 @@ def test_blend_autograd_function_takes_the_kernels(cuda_device):
     assert tile_raster2.tile_blend_bwd.launches == bwd + 1
     assert torch.equal(y.detach(), out)
     assert torch.equal(p.grad, tile_raster2.tile_blend_bwd(payload, starts, counts, out, gout, F, gx, T))
+
+
+def _table_bwd_case(seed, dev):
+    case = random_table_case(seed, dev, grid_x=5, grid_y=4, K=384)
+    payload, counts, F, gx = case
+    gen = torch.Generator().manual_seed(seed)
+    gout = torch.randn((counts.numel(), 256, F + 1), generator=gen).to(dev)
+    return case, tile_raster.tile_blend(*case), gout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_table_blend_kernel_matches_plain(cuda_device, seed):
+    """chip_smoke.compare_blend's rule: the kernel multiplies a chunk's
+    lanes in order, the plain version's cumprod is a parallel scan."""
+    case = random_table_case(seed, cuda_device, grid_x=5, grid_y=4, K=384)
+    before = tile_raster.tile_blend.launches
+    got = tile_raster.tile_blend(*case)
+    torch.cuda.synchronize()
+    assert tile_raster.tile_blend.launches == before + 1
+    compare_blend(got, tile_raster.tile_blend_plain(*case), case[2], "table blend kernel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_table_blend_backward_kernel_matches_plain(cuda_device, seed):
+    (payload, counts, F, gx), out, gout = _table_bwd_case(seed, cuda_device)
+    before = tile_raster.tile_blend_bwd.launches
+    got = tile_raster.tile_blend_bwd(payload, counts, out, gout, F, gx)
+    torch.cuda.synchronize()
+    assert tile_raster.tile_blend_bwd.launches == before + 1
+    want = tile_raster.tile_blend_bwd_plain(payload, counts, out, gout, F, gx)
+    for r in range(6 + F + 2):
+        scale = want[:, r].abs().max().clamp(min=1e-30)
+        torch.testing.assert_close(got[:, r] / scale, want[:, r] / scale, rtol=0, atol=BWD_ATOL_SCALED)
+    assert (got[:, 6 + F + 2:] == 0).all()
+    assert torch.equal(got, tile_raster.tile_blend_bwd(payload, counts, out, gout, F, gx))
+
+
+@pytest.mark.cuda
+def test_table_autograd_function_takes_the_kernels(cuda_device):
+    (payload, counts, F, gx), out, gout = _table_bwd_case(2, cuda_device)
+    p = payload.clone().requires_grad_(True)
+    fwd, bwd = tile_raster.tile_blend.launches, tile_raster.tile_blend_bwd.launches
+    y = tile_raster.TileBlend.apply(p, counts, F, gx)
+    y.backward(gout)
+    torch.cuda.synchronize()
+    assert (tile_raster.tile_blend.launches, tile_raster.tile_blend_bwd.launches) == (fwd + 1, bwd + 1)
+    assert torch.equal(y.detach(), out)
+    assert torch.equal(p.grad, tile_raster.tile_blend_bwd(payload, counts, out, gout, F, gx))
+    with pytest.raises(ValueError):
+        tile_raster.tile_blend(payload, counts, 9, gx)
+
+
+@pytest.mark.cuda
+def test_table_gather_gradient_repeats_bit_for_bit(cuda_device):
+    rng = np.random.default_rng(8)
+    tile_gauss = torch.as_tensor(rng.integers(-1, 500, (64, 256)).astype(np.int32), device=cuda_device)
+    src = torch.as_tensor(rng.normal(size=(500, 16)).astype(np.float32), device=cuda_device).requires_grad_(True)
+    d = torch.as_tensor(rng.normal(size=(64, 16, 256)).astype(np.float32), device=cuda_device)
+    before = segsum.segment_rowsum.launches
+    grads = [torch.autograd.grad(rasterize.build_payload_table(src, tile_gauss), src, d)[0] for _ in range(2)]
+    torch.cuda.synchronize()
+    assert segsum.segment_rowsum.launches == before + 2
+    assert torch.equal(*grads)
+    ref = torch.where((tile_gauss >= 0)[:, :, None], src[tile_gauss.clamp(min=0).long()], 0.0).transpose(1, 2)
+    torch.testing.assert_close(grads[0], torch.autograd.grad(ref, src, d)[0], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_probe_kernels_match_plain(cuda_device):
+    """The floor within 1e-5 of the sum of |values| (f32 sums in another
+    order); the tensor-core variant by chip_smoke.compare_blend's rule."""
+    case = random_blend_case(3, cuda_device, grid_x=5, grid_y=4, max_count=400)
+    before = probe_kernel.probe_floor.launches, probe_kernel.probe_blend_mma.launches
+    floor, mma = probe_kernel.probe_floor(*case), probe_kernel.probe_blend_mma(*case)
+    torch.cuda.synchronize()
+    assert (probe_kernel.probe_floor.launches, probe_kernel.probe_blend_mma.launches) == (before[0] + 1, before[1] + 1)
+    bound = 1e-5 * probe_kernel.probe_floor_plain(case[0].abs(), *case[1:])
+    assert ((floor - probe_kernel.probe_floor_plain(*case)).abs() <= bound + 1e-30).all()
+    compare_blend(mma, tile_raster2.tile_blend_plain(*case), case[3], "probe_blend_mma kernel")
+
+
+def test_every_source_is_built_by_name():
+    sources = {f[:-3] for f in os.listdir(_build.CSRC_DIR) if f.endswith(".cu")}
+    assert sources == set(_build.ALL_SOURCES)
+    for name in ("tile_blend_table", "tile_blend_table_bwd", "probe_blend"):
+        assert "-fmad=false" in _build.nvcc_flags(name)
 
 
 def test_library_name_tracks_source_and_flags():
