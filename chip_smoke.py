@@ -6,16 +6,23 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the hand-written CUDA kernels from street_gaussians_torch/csrc
    (seven sources holding eight kernels; one nvcc each, all started
-   together);
+   together), and beside them the probe build of the two main-path blend
+   kernels that times their blocks (script.block_times);
 3. holds each forward kernel against its plain PyTorch version on the
-   card, on a random ragged case and on the bench frame's own inputs,
-   and the whole serving path on a small scene against the CPU path;
+   card, on a random ragged case, on runs of up to 16,900 lanes that the
+   blend splits into segments (pixels that stop in the first segment, in
+   a later one and never) and on the bench frame's own inputs, where it
+   also holds the blend's work list against its plain version and prints
+   the run lengths and where the forward's blocks spend their time; and
+   the whole serving path on a small scene against the CPU path;
 4. serves the bench scene (1600x1064, 220k background points grown x3 =
    661,248 rows, 4 actors, 1024 sky cubemap) through serve.render_views:
    one warm-up view, then 8 timed views, which must be finite, drop no
    instance and go through both forward kernels (launch counters);
 5. trains: holds the two backward kernels against their plain versions
-   on a random case and on a bench train step's own inputs; runs two
+   on a random case, on the long runs (with the forward's saved boundary
+   state and without it: bit-equal) and on a bench train step's own
+   inputs; runs two
    train steps of a small scene on the card and on the CPU with the same
    draws (gradients and parameters within the CPU tests' tolerances);
    trains the bench cell (train.bench_train_cell), 3 warm-up steps and
@@ -47,6 +54,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -236,16 +244,20 @@ def random_expand_case(seed: int, N: int, dev):
     return t(vals), t(offs), torch.tensor(total, dtype=torch.int32, device=dev), total + 4097
 
 
-def random_blend_case(seed: int, dev, grid_x=40, grid_y=30, F=4, max_count=700, opacity_hi=0.99):
+def random_blend_case(seed: int, dev, grid_x=40, grid_y=30, F=4, max_count=700, opacity_hi=0.99,
+                      opacity_lo=0.02, counts=None):
     """Ragged runs of random screen-space Gaussians (about a fifth of the
-    tiles empty, the first run not block-aligned, features: rgb in
-    [0, 1) then depths in [1, 50)). Returns tile_blend_instances' args."""
+    tiles empty unless `counts` gives every tile's run length, the first
+    run not block-aligned, features: rgb in [0, 1) then depths in
+    [1, 50)). Returns tile_blend_instances' args."""
     from street_gaussians_torch.ops.tile_raster2 import payload_rows
 
     rng = np.random.default_rng(seed)
     T = grid_x * grid_y
-    counts = rng.integers(0, max_count, T).astype(np.int32)
-    counts[rng.uniform(size=T) < 0.2] = 0
+    if counts is None:
+        counts = rng.integers(0, max_count, T)
+        counts[rng.uniform(size=T) < 0.2] = 0
+    counts = np.asarray(counts, np.int32)
     lead = 37  # dead rows before the first run
     starts = (lead + np.cumsum(counts) - counts).astype(np.int32)
     S = lead + int(counts.sum())
@@ -259,7 +271,7 @@ def random_blend_case(seed: int, dev, grid_x=40, grid_y=30, F=4, max_count=700, 
     rows[sl, 2] = rng.uniform(0.01, 0.3, n)
     rows[sl, 3] = rng.uniform(-0.05, 0.05, n)
     rows[sl, 4] = rng.uniform(0.01, 0.3, n)
-    rows[sl, 5] = rng.uniform(0.02, opacity_hi, n)
+    rows[sl, 5] = rng.uniform(opacity_lo, opacity_hi, n)
     rows[sl, 6:5 + F] = rng.uniform(0, 1, (n, F - 1))
     rows[sl, 5 + F] = rng.uniform(1, 50, n)
     payload = np.concatenate(
@@ -267,6 +279,20 @@ def random_blend_case(seed: int, dev, grid_x=40, grid_y=30, F=4, max_count=700, 
     )
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)  # noqa: E731
     return t(payload), t(starts), t(counts), F, grid_x, T
+
+
+# run lengths of the long-run case: several times SEG (1,024), one lane
+# short of, at and one past multiples of it, short and empty runs between
+LONG_RUNS = (12_000, 0, 300, 10_500, 1_025, 1_024, 2_048, 5_000, 37, 0, 2_065, 640, 1_023, 1_537, 16_900, 91)
+# its opacity ranges: pixels that stop within the first segment, in a
+# later one, and never
+LONG_OPACITIES = ((0.02, 0.99), (0.02, 0.05), (0.004, 0.008))
+
+
+def long_blend_case(seed: int, dev, opacity):
+    """random_blend_case with LONG_RUNS on a 4x4 grid."""
+    return random_blend_case(seed, dev, grid_x=4, grid_y=4, counts=LONG_RUNS,
+                             opacity_lo=opacity[0], opacity_hi=opacity[1])
 
 
 def random_table_case(seed: int, dev, grid_x=40, grid_y=30, F=4, K=768, counts=None, opacity_hi=0.99):
@@ -310,6 +336,7 @@ def main() -> int:
     from street_gaussians_torch.models.renderer import screen_space
     from street_gaussians_torch.models.sky_cubemap import build_sky_table
     from street_gaussians_torch.ops import binning, fill, rasterize, tile_raster2
+    from street_gaussians_torch.script import block_times
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -324,8 +351,12 @@ def main() -> int:
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    built = _build.build(_build.ALL_SOURCES)
-    log(f"[build] {time.perf_counter() - t0:.2f} s wall for the {len(_build.ALL_SOURCES)} sources (8 kernels)")
+    with ThreadPoolExecutor(2) as pool:
+        probe_build = pool.submit(_build.build, block_times.REGIONS, block_times.PROBE_FLAGS)
+        built = _build.build(_build.ALL_SOURCES)
+        probe_build.result()
+    log(f"[build] {time.perf_counter() - t0:.2f} s wall for the {len(_build.ALL_SOURCES)} sources (8 kernels) "
+        f"and the probe build of {list(block_times.REGIONS)}")
     for name, info in built.items():
         ptxas = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "Compiling" in ln]
         log(f"[build] {name}.cu {info['seconds']:.2f} s; " + " | ".join(ptxas))
@@ -341,6 +372,11 @@ def main() -> int:
         tile_raster2.tile_blend_instances(*case), tile_raster2.tile_blend_plain(*case),
         case[3], "tile_blend random ragged (1200 tiles)",
     )
+    for opacity in LONG_OPACITIES:
+        case = long_blend_case(1, dev, opacity)
+        err_b = max(err_b, compare_blend(
+            tile_raster2.tile_blend_instances(*case), tile_raster2.tile_blend_plain(*case), case[3],
+            f"tile_blend long runs (16 tiles, up to {max(LONG_RUNS)} lanes, opacity {opacity})"))
 
     # ---- 3b. the bench frame's own inputs ----
     t0 = time.perf_counter()
@@ -374,6 +410,17 @@ def main() -> int:
         b_out = tile_raster2.tile_blend_instances(*b_args)
         b_ref, work = tile_raster2.tile_blend_plain(*b_args, return_work=True)
         err_b = max(err_b, compare_blend(b_out, b_ref, F, f"tile_blend bench frame ({T} tiles)"))
+        seg_blocks = tile_raster2.SEG // tile_raster2.CHUNK
+        plan = tile_raster2.blend_plan(bi.bins.tile_start, bi.bins.tile_count, bi.payload.shape[0], seg_blocks)
+        plan_ref = tile_raster2.blend_plan_plain(bi.bins.tile_start, bi.bins.tile_count, seg_blocks)
+        if ((plan["n_long"], plan["n_items"]) != (plan_ref["n_long"], plan_ref["n_items"])
+                or any(not torch.equal(plan[k], plan_ref[k]) for k in ("tile_slot", "item_tile", "item_seg"))):
+            raise AssertionError("the blend's work list differs from its plain version on the bench frame")
+        log(f"[check] blend work list bench frame (SEG={tile_raster2.SEG}): exact; {plan['n_items']} items, "
+            f"{plan['n_long']} of them segments of {int((plan['tile_slot'] >= 0).sum())} long tiles")
+        log(f"[runs] bench frame: {json.dumps(block_times.run_length_stats(bi.bins.tile_count))}")
+        for row in block_times.block_times("tile_blend", lambda: tile_raster2.tile_blend_instances(*b_args), F):
+            log(f"[blocks] forward, bench frame: {json.dumps(row)}")
         live = int(bi.bins.tile_count.sum())
         evaluated, blended = int(work["evaluated"]), int(work["blended"])
         log(f"[check] bench frame: {int(bi.bins.num_instances)} instances, {live} kept, "
@@ -733,6 +780,7 @@ def train_phase(dev) -> dict:
     from street_gaussians_torch import train
     from street_gaussians_torch.models import sky_cubemap
     from street_gaussians_torch.ops import fill, rasterize, segsum, tile_raster2
+    from street_gaussians_torch.script import block_times
     from street_gaussians_torch.train_lib import Draws, flatten_params
 
     # ---- 5a. backward kernels on random inputs ----
@@ -745,6 +793,18 @@ def train_phase(dev) -> dict:
     ref = tile_raster2.tile_blend_bwd_plain(payload, starts, counts, out, gout, F, gx, T)
     err_bwd = compare_blend_bwd(got, ref, live_lanes(payload, starts, counts), F,
                                 "tile_blend_bwd random ragged (1200 tiles)")
+    for opacity in LONG_OPACITIES:
+        case = long_blend_case(1, dev, opacity)
+        payload, starts, counts, F, gx, T = case
+        gout = torch.randn((T, 256, F + 1), generator=gen).to(dev)
+        out, state = tile_raster2._forward(*case)
+        got = tile_raster2.tile_blend_bwd(payload, starts, counts, out, gout, F, gx, T)
+        if not torch.equal(got, tile_raster2.tile_blend_bwd(payload, starts, counts, out, gout, F, gx, T, state=state)):
+            raise AssertionError("tile_blend_bwd: with and without the forward's state not bit-equal")
+        ref = tile_raster2.tile_blend_bwd_plain(payload, starts, counts, out, gout, F, gx, T)
+        err_bwd = max(err_bwd, compare_blend_bwd(
+            got, ref, live_lanes(payload, starts, counts), F,
+            f"tile_blend_bwd long runs (16 tiles, up to {max(LONG_RUNS)} lanes, opacity {opacity})"))
     rng = np.random.default_rng(12)
     keys = torch.as_tensor(np.sort(rng.integers(0, 50_000, 300_000)).astype(np.int32), device=dev)
     d = torch.as_tensor(rng.normal(size=(12, keys.numel())).astype(np.float32), device=dev)
@@ -781,7 +841,9 @@ def train_phase(dev) -> dict:
     if len(bwd_rec.calls) != 1 or len(seg_rec.calls) != 2:
         raise AssertionError(f"a train step made {len(bwd_rec.calls)} tile_blend_bwd and "
                              f"{len(seg_rec.calls)} segment_rowsum calls, expected 1 and 2")
-    bwd_in = bwd_rec.calls[0][0]
+    bwd_in, bwd_state = bwd_rec.calls[0][0], bwd_rec.calls[0][1].get("state")
+    if bwd_state is None:
+        raise AssertionError("the train step's backward ran without the forward's boundary state")
     seg_in = [(a[0], a[1], kw["num_segments"]) for a, kw in seg_rec.calls]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -855,13 +917,20 @@ def train_phase(dev) -> dict:
     with torch.no_grad():
         payload, starts, counts, out, gout, F, gx, T = bwd_in
         live_mask = live_lanes(payload, starts, counts)
-        got = tile_raster2.tile_blend_bwd(*bwd_in)
+        log(f"[runs] bench train step: {json.dumps(block_times.run_length_stats(counts))}")
+        for row in block_times.block_times("tile_blend_bwd", lambda: tile_raster2.tile_blend_bwd(*bwd_in, state=bwd_state), F):
+            log(f"[blocks] backward, bench train step: {json.dumps(row)}")
+        got = tile_raster2.tile_blend_bwd(*bwd_in, state=bwd_state)
+        if not torch.equal(got, tile_raster2.tile_blend_bwd(*bwd_in)):
+            raise AssertionError("tile_blend_bwd bench step: with and without the forward's state not bit-equal")
         ref = tile_raster2.tile_blend_bwd_plain(*bwd_in)
         err_bwd = max(err_bwd, compare_blend_bwd(got, ref, live_mask, F, f"tile_blend_bwd bench step ({T} tiles)"))
         _, work = tile_raster2.tile_blend_plain(payload, starts, counts, F, gx, T, return_work=True)
         evaluated, blended = int(work["evaluated"]), int(work["blended"])
         live = int(live_mask.sum())
-        bwd_ms = cuda_ms(lambda: tile_raster2.tile_blend_bwd(*bwd_in), 10)
+        # as the train step calls it, and without the forward's state
+        bwd_ms = cuda_ms(lambda: tile_raster2.tile_blend_bwd(*bwd_in, state=bwd_state), 10)
+        bwd_no_state = cuda_ms(lambda: tile_raster2.tile_blend_bwd(*bwd_in), 10)
         bwd_plain = cuda_ms(lambda: tile_raster2.tile_blend_bwd_plain(*bwd_in), 2)
         bwd_bytes = 4 * (live * (6 + F) + 2 * T * 256 * (F + 1) + payload.numel())
         # f32 operations: the forward's re-walk (17 per evaluated pair,
@@ -900,7 +969,8 @@ def train_phase(dev) -> dict:
         "kernels": [
             ("tile_blend_bwd", "street_gaussians_torch/csrc/tile_blend_bwd.cu",
              "street_gaussians_tpu/ops/tile_raster2.py:385", launches["tile_blend_bwd"], err_bwd,
-             bwd_ms, bwd_plain, None, bound(bwd_bytes, bwd_ops), {"step_ms": sum(step_ms) / TRAIN_STEPS}),
+             bwd_ms, bwd_plain, None, bound(bwd_bytes, bwd_ops),
+             {"step_ms": sum(step_ms) / TRAIN_STEPS, "without_forward_state_ms": bwd_no_state}),
             ("segment_rowsum", "street_gaussians_torch/csrc/segsum.cu",
              "street_gaussians_tpu/ops/segsum.py:73", launches["segment_rowsum"], err_seg,
              seg["ms"], seg["plain_ms"], seg["library_ms"], bound(seg["bytes"], 0),

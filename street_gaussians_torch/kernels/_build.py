@@ -4,8 +4,11 @@ Each source compiles with nvcc into its own shared library with a plain
 C interface under `street_gaussians_torch/_build/`, on first use, and is
 loaded with ctypes. Nothing builds at import time. `build` compiles
 several sources at once, one nvcc process per source. A library's file
-name carries a hash of its source text and its nvcc flags, so a change
-to either builds a new library instead of loading a stale one.
+name carries a hash of its source text, of the headers under `csrc/`
+(`*.cuh`) and of its nvcc flags, so a change to any of them builds a new
+library instead of loading a stale one. `load(..., extra_flags=...)`
+builds a variant of a source (a probe build with a `-D` macro) beside
+the shipped library.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Sequence
 
 import torch
 
@@ -39,7 +42,7 @@ ALL_SOURCES = (
     "tile_blend_table", "tile_blend_table_bwd", "probe_blend",
 )
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[tuple, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
@@ -54,10 +57,10 @@ def source_path(name: str) -> str:
     return os.path.join(CSRC_DIR, f"{name}.cu")
 
 
-def nvcc_flags(name: str) -> list:
+def nvcc_flags(name: str, extra_flags: Sequence[str] = ()) -> list:
     return [
         *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-Xptxas", "-v", *EXTRA_FLAGS.get(name, []),
+        "-Xptxas", "-v", *EXTRA_FLAGS.get(name, []), *extra_flags,
     ]
 
 
@@ -68,12 +71,23 @@ def library_name(source: bytes, name: str, flags) -> str:
     return f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def library_path(name: str) -> str:
-    with open(source_path(name), "rb") as f:
-        return os.path.join(BUILD_DIR, library_name(f.read(), name, nvcc_flags(name)))
+def source_bytes(name: str) -> bytes:
+    """The text a library is built from: its source, then every header
+    under csrc/ (a source may include any of them)."""
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    text = b""
+    for path in [source_path(name), *(os.path.join(CSRC_DIR, h) for h in headers)]:
+        with open(path, "rb") as f:
+            text += f.read() + b"\0"
+    return text
 
 
-def build(names: Iterable[str]) -> Dict[str, dict]:
+def library_path(name: str, extra_flags: Sequence[str] = ()) -> str:
+    flags = nvcc_flags(name, extra_flags)
+    return os.path.join(BUILD_DIR, library_name(source_bytes(name), name, flags))
+
+
+def build(names: Iterable[str], extra_flags: Sequence[str] = ()) -> Dict[str, dict]:
     """Compile the named sources that are missing or stale, all nvcc
     processes started together. Returns {name: {"seconds", "log"}} for
     the sources it compiled (the log holds ptxas's register and shared
@@ -82,12 +96,12 @@ def build(names: Iterable[str]) -> Dict[str, dict]:
     nvcc = None
     running = {}
     for name in names:
-        so = library_path(name)
+        so = library_path(name, extra_flags)
         if os.path.exists(so):
             continue
         nvcc = nvcc or _nvcc()
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [nvcc, *nvcc_flags(name), "-o", tmp, source_path(name)]
+        cmd = [nvcc, *nvcc_flags(name, extra_flags), "-o", tmp, source_path(name)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         running[name] = (proc, so, tmp, time.perf_counter())
     done = {}
@@ -100,16 +114,19 @@ def build(names: Iterable[str]) -> Dict[str, dict]:
     return done
 
 
-def load(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+def load(name: str, bind: Callable[[ctypes.CDLL], None], extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu`, built on first use.
-    `bind` declares argtypes/restype of its entry points."""
+    `bind` declares argtypes/restype of its entry points. `extra_flags`
+    names a variant of the source (more nvcc flags), built and kept
+    beside the shipped library."""
+    key = (name, *extra_flags)
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get(key)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(library_path(name))
+            build([name], extra_flags)
+            lib = ctypes.CDLL(library_path(name, extra_flags))
             bind(lib)
-            _LIBS[name] = lib
+            _LIBS[key] = lib
         return lib
 
 

@@ -5,12 +5,13 @@ blend's forward kernel against two variants on the bench frame's payload
 (1600x1064, 220,000 background points grown x3, 4 actors, frame 2, eval
 mode, instance_capacity 2^21, tile_capacity 1024):
 
-  floor    reads every payload block of every tile's run and launches
-           the same grid, with no blend arithmetic (`probe_floor`)
-  current  ops/tile_raster2.tile_blend_instances
-  variant  the same function with the in-block prefix sums as products
-           with a triangular 0/1 matrix on the tensor cores
-           (`probe_blend_mma`)
+  floor    reads every payload block of every tile's run from a grid of
+           one block per tile, with no blend arithmetic (`probe_floor`)
+  current  ops/tile_raster2.tile_blend_instances (long runs split into
+           segments, one block each)
+  variant  the same function, one block per tile, with the in-block
+           prefix sums as products with a triangular 0/1 matrix on the
+           tensor cores (`probe_blend_mma`)
 
 prints max |current - variant|, and times forward + backward of the
 current kernels under the loss sum(out * out) * 1e-6.

@@ -12,7 +12,16 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import compare_blend, random_blend_case, random_expand_case, random_table_case
+from chip_smoke import (
+    LONG_OPACITIES,
+    compare_blend,
+    compare_blend_bwd,
+    live_lanes,
+    long_blend_case,
+    random_blend_case,
+    random_expand_case,
+    random_table_case,
+)
 from street_gaussians_torch.kernels import _build
 from street_gaussians_torch.ops import fill, rasterize, segsum, tile_raster, tile_raster2
 from street_gaussians_torch.script import probe_kernel
@@ -151,6 +160,48 @@ def test_blend_autograd_function_takes_the_kernels(cuda_device):
     assert torch.equal(p.grad, tile_raster2.tile_blend_bwd(payload, starts, counts, out, gout, F, gx, T))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg_blocks", [1, 4, 1 << 20])
+def test_blend_plan_kernel_matches_plain(cuda_device, seg_blocks):
+    """The work list is integers: exact. Every run is cut at each
+    seg_blocks-th payload block it touches."""
+    payload, starts, counts = long_blend_case(0, cuda_device, LONG_OPACITIES[0])[:3]
+    got = tile_raster2.blend_plan(starts, counts, payload.shape[0], seg_blocks)
+    want = tile_raster2.blend_plan_plain(starts, counts, seg_blocks)
+    max_long, max_items = tile_raster2.plan_bounds(payload.shape[0], counts.numel(), seg_blocks)
+    assert (got["n_long"], got["n_items"]) == (want["n_long"], want["n_items"])
+    assert got["n_long"] <= max_long and got["n_items"] <= max_items
+    for k in ("tile_slot", "item_tile", "item_seg"):
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opacity", LONG_OPACITIES)
+def test_blend_kernels_match_plain_on_long_runs(cuda_device, opacity):
+    """Runs of 10,000 lanes and more, split into segments: forward and
+    backward by chip_smoke's rules; the backward with the forward's saved
+    boundary state and without it, and a repeat, bit for bit."""
+    case = long_blend_case(1, cuda_device, opacity)
+    payload, starts, counts, F, gx, T = case
+    assert int(counts.max()) >= 10_000
+    ref = tile_raster2.tile_blend_plain(*case)
+    out, state = tile_raster2._forward(*case)
+    compare_blend(out, ref, F, f"long runs, opacity {opacity}")
+    assert torch.equal(out, tile_raster2.tile_blend_instances(*case))
+    stops = ref[..., F] < 2e-4
+    assert bool(stops.any()) == (opacity[1] > 0.01)
+    gout = torch.randn((T, 256, F + 1), generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    got = tile_raster2.tile_blend_bwd(payload, starts, counts, out, gout, F, gx, T)
+    want = tile_raster2.tile_blend_bwd_plain(payload, starts, counts, out, gout, F, gx, T)
+    compare_blend_bwd(got, want, live_lanes(payload, starts, counts), F, f"long runs backward, opacity {opacity}")
+    with_state = tile_raster2.tile_blend_bwd(payload, starts, counts, out, gout, F, gx, T, state=state)
+    assert torch.equal(got, with_state)
+    p = payload.clone().requires_grad_(True)
+    tile_raster2.TileBlendInstances.apply(p, starts, counts, F, gx, T).backward(gout)
+    assert torch.equal(p.grad, got)
+    assert torch.equal(got, tile_raster2.tile_blend_bwd(payload, starts, counts, out, gout, F, gx, T))
+
+
 def _table_bwd_case(seed, dev):
     case = random_table_case(seed, dev, grid_x=5, grid_y=4, K=384)
     payload, counts, F, gx = case
@@ -251,3 +302,17 @@ def test_library_name_tracks_source_and_flags():
     assert _build.library_name(src, "tile_blend", flags + ["-lineinfo"]) != base
     assert "-fmad=false" in flags and "-fmad=false" not in _build.nvcc_flags("segsum")
     assert _build.library_path("segsum").startswith(_build.BUILD_DIR)
+
+
+def test_library_name_tracks_headers_and_variants():
+    """A library is built from its source and the headers under csrc/,
+    and a variant with more nvcc flags gets a name of its own."""
+    text = _build.source_bytes("tile_blend")
+    with open(_build.source_path("tile_blend"), "rb") as f:
+        assert text.startswith(f.read())
+    for header in ("blend_common.cuh", "block_times.cuh"):
+        with open(os.path.join(_build.CSRC_DIR, header), "rb") as f:
+            assert f.read() in text
+    probe = ("-DSG_BLOCK_TIMES",)
+    assert _build.nvcc_flags("tile_blend", probe)[-1] == "-DSG_BLOCK_TIMES"
+    assert _build.library_path("tile_blend", probe) != _build.library_path("tile_blend")
