@@ -7,7 +7,9 @@
 2. builds the hand-written CUDA kernels from street_gaussians_torch/csrc
    (seven sources holding eight kernels; one nvcc each, all started
    together), and beside them the probe build of the two main-path blend
-   kernels that times their blocks (script.block_times);
+   kernels that times their blocks (script.block_times) and the
+   search-only probe build of the segmented row-sum and the run expansion
+   (script.search_times);
 3. holds each forward kernel against its plain PyTorch version on the
    card, on a random ragged case, on runs of up to 16,900 lanes that the
    blend splits into segments (pixels that stop in the first segment, in
@@ -28,9 +30,14 @@
    trains the bench cell (train.bench_train_cell), 3 warm-up steps and
    10 timed steps, which must be finite, drop no instance, go through
    all four kernels and repeat bit for bit; then densify, reset and one
-   more step;
+   more step; holds the segmented row-sum on the bench step's own two
+   calls against its plain version and, bit for bit, against its order
+   emulated on the CPU (ops.segsum.segment_rowsum_emulated), counts its
+   launches per call, and times the two gradient steps around it stage
+   by stage;
 6. times kernels 1 to 4, their plain versions and a one-call PyTorch
-   yardstick, and computes their bounds;
+   yardstick, and computes their bounds; times kernels 3 and 4 also in
+   their search-only probe build (`[probe]` lines);
 7. the dense-table layout and the blend probe: holds the table blend's
    forward and backward kernels and the probe's floor and tensor-core
    variants against their plain versions on a random case and on the
@@ -209,6 +216,18 @@ def compare_segsum(got, ref, abs_sum, what: str) -> float:
     return max_err
 
 
+def check_emulated(got, d, keys, num_segments, what: str) -> None:
+    """The identity-segment kernel against its order of sums emulated on
+    the CPU (ops.segsum.segment_rowsum_emulated): bit for bit."""
+    from street_gaussians_torch.ops import segsum
+
+    want = segsum.segment_rowsum_emulated(d.cpu(), keys.cpu(), num_segments=num_segments)
+    if not torch.equal(got.cpu(), want):
+        n = int((got.cpu() != want).sum())
+        raise AssertionError(f"{what}: {n} sums differ from the kernel's order emulated on the CPU")
+    log(f"[check] {what}: bit-equal to the kernel's order emulated on the CPU")
+
+
 def compare_floor(got, ref, abs_ref, what: str) -> float:
     """The probe's floor against its plain version (see FLOOR_RTOL)."""
     d = (got - ref).abs()
@@ -336,7 +355,7 @@ def main() -> int:
     from street_gaussians_torch.models.renderer import screen_space
     from street_gaussians_torch.models.sky_cubemap import build_sky_table
     from street_gaussians_torch.ops import binning, fill, rasterize, tile_raster2
-    from street_gaussians_torch.script import block_times
+    from street_gaussians_torch.script import block_times, search_times
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -351,12 +370,14 @@ def main() -> int:
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         probe_build = pool.submit(_build.build, block_times.REGIONS, block_times.PROBE_FLAGS)
+        search_build = pool.submit(_build.build, search_times.SOURCES, search_times.PROBE_FLAGS)
         built = _build.build(_build.ALL_SOURCES)
         probe_build.result()
+        search_build.result()
     log(f"[build] {time.perf_counter() - t0:.2f} s wall for the {len(_build.ALL_SOURCES)} sources (8 kernels) "
-        f"and the probe build of {list(block_times.REGIONS)}")
+        f"and the probe builds of {list(block_times.REGIONS)} and {list(search_times.SOURCES)}")
     for name, info in built.items():
         ptxas = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "Compiling" in ln]
         log(f"[build] {name}.cu {info['seconds']:.2f} s; " + " | ".join(ptxas))
@@ -492,6 +513,8 @@ def main() -> int:
         if not torch.equal(lib_out(), a_out):
             raise AssertionError("repeat_interleave yardstick != expand_runs")
         a_ms = cuda_ms(lambda: fill.expand_runs(ex.vals, ex.offs, ex.total, S), 50)
+        a_search = search_only_ms(lambda: fill.expand_runs(ex.vals, ex.offs, ex.total, S), 50)
+        log(f"[probe] expand_runs bench frame: whole {a_ms:.4f} ms, search only {a_search:.4f} ms")
         a_plain = cuda_ms(lambda: fill.expand_runs_plain(ex.vals, ex.offs, ex.total, S), 20)
         a_lib = cuda_ms(lib_out, 20)
         b_ms = cuda_ms(lambda: tile_raster2.tile_blend_instances(*b_args), 20)
@@ -512,7 +535,7 @@ def main() -> int:
         ("expand_runs", "street_gaussians_torch/csrc/fill.cu",
          "street_gaussians_tpu/ops/fill.py:55", t["launches"]["expand_runs"], err_a,
          a_ms, a_plain, a_lib, bound(a_bytes, a_ops),
-         {**train, "serve_launches": serve_launches["expand_runs"]}),
+         {**train, "serve_launches": serve_launches["expand_runs"], "search_only_ms": a_search}),
         ("tile_blend_instances", "street_gaussians_torch/csrc/tile_blend.cu",
          "street_gaussians_tpu/ops/tile_raster2.py:318", t["launches"]["tile_blend_instances"], err_b,
          b_ms, b_plain, None, bound(b_bytes, b_ops),
@@ -674,6 +697,25 @@ def table_phase(dev, screen, H, W, b_args, b_ref, b_plain, b_bound) -> list:
     ]
 
 
+def search_only_ms(fn, reps: int) -> float:
+    """fn()'s device ms with segsum.cu and fill.cu from their
+    search-only probe build (script.search_times)."""
+    from street_gaussians_torch.script import search_times
+
+    return search_times.with_build_flags(search_times.PROBE_FLAGS, lambda: cuda_ms(fn, reps))
+
+
+def kernels_per_call(fn) -> list:
+    """Names of the device kernels one fn() launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def bound(nbytes, ops):
     """(least ms for the work, "bytes" or "operations")."""
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
@@ -780,7 +822,7 @@ def train_phase(dev) -> dict:
     from street_gaussians_torch import train
     from street_gaussians_torch.models import sky_cubemap
     from street_gaussians_torch.ops import fill, rasterize, segsum, tile_raster2
-    from street_gaussians_torch.script import block_times
+    from street_gaussians_torch.script import block_times, search_times
     from street_gaussians_torch.train_lib import Draws, flatten_params
 
     # ---- 5a. backward kernels on random inputs ----
@@ -812,6 +854,7 @@ def train_phase(dev) -> dict:
     ref = segsum.segment_rowsum_plain(d, keys, num_segments=50_000)
     err_seg = compare_segsum(got, ref, segsum.segment_rowsum_plain(d.abs(), keys, num_segments=50_000),
                              "segment_rowsum random (C=12, L=300000, N=50000)")
+    check_emulated(got, d, keys, 50_000, "segment_rowsum random (C=12, L=300000, N=50000)")
 
     # ---- 5b. a small train step, card against CPU ----
     small_step_check(dev)
@@ -829,6 +872,8 @@ def train_phase(dev) -> dict:
     # the first warm-up step's own backward inputs, for 5f
     bwd_rec = CallRecorder(tile_raster2.tile_blend_bwd, [tile_raster2])
     seg_rec = CallRecorder(segsum.segment_rowsum, [rasterize, sky_cubemap])
+    vjp_recs = {"payload": CallRecorder(rasterize.payload_grad, [rasterize]),
+                "sky": CallRecorder(sky_cubemap.bilinear_taps_grad, [sky_cubemap])}
     for i in range(TRAIN_WARMUP):
         t0 = time.perf_counter()
         state, sc = train.run_step(cell, state, gen)
@@ -836,8 +881,8 @@ def train_phase(dev) -> dict:
         log(f"[train] warm-up step {i}: {1e3 * (time.perf_counter() - t0):.1f} ms wall, "
             f"loss {float(sc['loss']):.6f}")
         if i == 0:
-            bwd_rec.restore()
-            seg_rec.restore()
+            for rec in (bwd_rec, seg_rec, *vjp_recs.values()):
+                rec.restore()
     if len(bwd_rec.calls) != 1 or len(seg_rec.calls) != 2:
         raise AssertionError(f"a train step made {len(bwd_rec.calls)} tile_blend_bwd and "
                              f"{len(seg_rec.calls)} segment_rowsum calls, expected 1 and 2")
@@ -845,6 +890,11 @@ def train_phase(dev) -> dict:
     if bwd_state is None:
         raise AssertionError("the train step's backward ran without the forward's boundary state")
     seg_in = [(a[0], a[1], kw["num_segments"]) for a, kw in seg_rec.calls]
+    # kept on the host until 5f, so that they leave the steps' peak memory as it was
+    vjp_in = {what: [a.cpu() if torch.is_tensor(a) else a for a in rec.calls[0][0]]
+              for what, rec in vjp_recs.items()}
+    for rec in vjp_recs.values():
+        rec.calls.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for k in (fill.expand_runs, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd,
@@ -949,6 +999,11 @@ def train_phase(dev) -> dict:
                 got, ref, abs_sum, f"segment_rowsum bench step {what} (C={d.shape[0]}, L={d.shape[1]}, N={N})"))
             if not torch.equal(got, segsum.segment_rowsum(d, keys, num_segments=N)):
                 raise AssertionError(f"segment_rowsum {what}: repeat not bit-equal")
+            check_emulated(got, d, keys, N, f"segment_rowsum bench step {what}")
+            names = kernels_per_call(lambda: segsum.segment_rowsum(d, keys, num_segments=N))
+            log(f"[check] segment_rowsum bench step {what}: {len(names)} kernel launches per call {names}")
+            if not 1 <= len(names) <= 2:
+                raise AssertionError(f"segment_rowsum {what}: {len(names)} launches per call, at most 2")
             nv = int((keys < N).sum())  # the rows in a segment: a prefix of the sorted keys
             lib = lambda: d.new_zeros((d.shape[0], N)).index_add_(1, keys[:nv], d[:, :nv])  # noqa: E731
             call = {"what": what, "C": d.shape[0], "L": d.shape[1], "N": N,
@@ -957,11 +1012,21 @@ def train_phase(dev) -> dict:
                     "library_ms": cuda_ms(lib, 20),
                     "bytes": 4 * (d.numel() + keys.numel() + d.shape[0] * N)}
             call["bound_ms"] = bound(call["bytes"], 0)[0]
+            call["search_only_ms"] = search_only_ms(lambda: segsum.segment_rowsum(d, keys, num_segments=N), 20)
+            log(f"[probe] segment_rowsum {what}: whole {call['ms']:.4f} ms, search only "
+                f"{call['search_only_ms']:.4f} ms")
             seg["calls"].append(call)
             for k in ("ms", "plain_ms", "library_ms", "bytes"):
                 seg[k] += call[k]
             log(f"[kernel] segment_rowsum {what}: {call['ms']:.4f} ms (plain {call['plain_ms']:.4f}, "
                 f"index_add_ {call['library_ms']:.4f}), bound {call['bound_ms']:.4f} ms by bytes")
+        vjp = {}
+        on_card = {k: [a.to(dev) if torch.is_tensor(a) else a for a in v] for k, v in vjp_in.items()}
+        for what, stages in (("payload", search_times.payload_stages(*on_card["payload"])[0]),
+                             ("sky", search_times.sky_stages(*on_card["sky"])[0])):
+            vjp[what] = {f"{k}_ms": cuda_ms(fn, 10) for k, fn in stages.items()}
+            log(f"[vjp] {what} gradient step, bench train step: {json.dumps(vjp[what])}")
+        del vjp_in, on_card
     log(f"[kernel] bench-step counts: tile_blend_bwd bytes {bwd_bytes}, f32 ops {bwd_ops} "
         f"({evaluated} pairs evaluated, {blended} blended); segment_rowsum bytes {seg['bytes']} per step")
     return {
@@ -974,7 +1039,7 @@ def train_phase(dev) -> dict:
             ("segment_rowsum", "street_gaussians_torch/csrc/segsum.cu",
              "street_gaussians_tpu/ops/segsum.py:73", launches["segment_rowsum"], err_seg,
              seg["ms"], seg["plain_ms"], seg["library_ms"], bound(seg["bytes"], 0),
-             {"per": "both calls of one step", "calls": seg["calls"]}),
+             {"per": "both calls of one step", "calls": seg["calls"], "vjp": vjp}),
         ],
     }
 

@@ -8,10 +8,12 @@ run ends at `total`), so
 and 0 for slots no run covers, at and beyond `total` included.
 
 Replaces street_gaussians_tpu/ops/fill.py::_kernel (an MXU select
-matmul on the TPU) with `csrc/fill.cu`: one thread per output slot,
-which binary-searches the run ends for its owner. Bound on the H100:
-memory (read vals [C, N], write out [C, S]); the copy is exact and
-deterministic, and the work is even however ragged the runs are.
+matmul on the TPU) with `csrc/fill.cu`, which splits the merge of the
+run ends with the slots into tiles of equal length, one search per tile
+end (`merge_path_runs_plain` is that partition in plain PyTorch,
+`expand_runs_partitioned` the expansion walked through it). Bound on
+the H100: memory (read vals [C, N], write out [C, S]); the copy is exact
+and deterministic, and the work is even however ragged the runs are.
 
 `expand_runs` runs the plain PyTorch version for a CPU tensor and the
 kernel for a CUDA tensor.
@@ -24,6 +26,14 @@ import ctypes
 import torch
 
 from street_gaussians_torch.kernels import _build
+
+# more nvcc flags for the library: script/search_times.py sets a probe
+# build here for the length of its measurement
+BUILD_FLAGS: tuple = ()
+# the kernel's block: threads, and merged items per thread
+# (csrc/fill.cu FILL_THREADS, FILL_ITEMS)
+FILL_THREADS = 256
+FILL_ITEMS = 8
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -51,6 +61,8 @@ def _check_args(vals, offs, total, num_slots):
         )
     if num_slots < 0:
         raise ValueError("expand_runs: num_slots must be >= 0")
+    if N + num_slots >= 2**31 - 2**16:
+        raise ValueError(f"expand_runs: {N} runs + {num_slots} slots >= 2**31 - 2**16")
 
 
 def expand_runs_plain(
@@ -67,6 +79,54 @@ def expand_runs_plain(
     jc = j.clamp(max=N - 1)
     hit = (j < N) & (offs[jc] <= s)
     return torch.where(hit[None, :], vals[:, jc], vals.new_zeros(()))
+
+
+def merge_path_runs_plain(offs: torch.Tensor, total: torch.Tensor, num_slots: int, diags: torch.Tensor):
+    """The kernel's partition in plain PyTorch: for each diagonal d, the
+    (run, slot) point (i, d - i) where the first d items of the merge
+    of the run ends (offs[1:], then total) with the slots 0..S-1 are the
+    ends of runs 0..i-1 and slots 0..d-i-1. Run i's end is item
+    i + (slots before it) of the merge: a slot at or past the end comes
+    after it."""
+    N = offs.shape[0]
+    ends = torch.cat([offs[1:], total.reshape(1).to(offs.dtype)]).long()
+    pos = torch.arange(N, device=offs.device) + ends.clamp(0, num_slots)
+    i = torch.searchsorted(pos, diags.long())
+    return i, diags.long() - i
+
+
+def expand_runs_partitioned(
+    vals: torch.Tensor, offs: torch.Tensor, total: torch.Tensor, num_slots: int,
+    threads: int = FILL_THREADS, items: int = FILL_ITEMS,
+) -> torch.Tensor:
+    """`expand_runs` walked as the kernel walks it, in plain PyTorch:
+    each thread starts at its point of the partition and takes its
+    `items` merged items in order, a run end moving it to the next run
+    and a slot taking the current run (or none). Same contract and
+    result as `expand_runs`; the main path never calls it."""
+    _check_args(vals, offs, total, num_slots)
+    C, N = vals.shape
+    if N == 0:
+        return vals.new_zeros((C, num_slots))
+    dev = vals.device
+    total_items = N + num_slots
+    nt = -(-total_items // items)
+    start = torch.clamp(torch.arange(nt, device=dev) * items, max=total_items)
+    i, j = merge_path_runs_plain(offs, total, num_slots, start)
+    ends = torch.cat([offs[1:], total.reshape(1).to(offs.dtype)]).long()
+    offs_l = offs.long()
+    run_of = torch.full((num_slots,), -1, dtype=torch.int64, device=dev)
+    for k in range(items):
+        live = start + k < total_items
+        ic = i.clamp(max=N - 1)
+        in_runs = i < N
+        is_end = live & in_runs & ((j >= num_slots) | (ends[ic] <= j))
+        is_slot = live & ~is_end
+        hit = offs_l[ic] <= j
+        slot = is_slot.nonzero().squeeze(1)
+        run_of[j[slot]] = torch.where(in_runs & hit, i, -1)[slot]
+        i, j = i + is_end, j + is_slot
+    return torch.where(run_of[None, :] >= 0, vals[:, run_of.clamp(min=0)], vals.new_zeros(()))
 
 
 def expand_runs(
@@ -86,7 +146,7 @@ def expand_runs(
     total = total.reshape(()).contiguous()
     C, N = vals.shape
     out = torch.empty((C, num_slots), dtype=torch.float32, device=vals.device)
-    lib = _build.load("fill", _bind)
+    lib = _build.load("fill", _bind, BUILD_FLAGS)
     err = lib.expand_runs_f32(
         _build.ptr(vals), _build.ptr(offs), _build.ptr(total), _build.ptr(out),
         C, N, num_slots, _build.stream_of(vals),

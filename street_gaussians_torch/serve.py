@@ -114,6 +114,31 @@ def render_views(
 STAGES = ("screen_space", "binning", "payload", "tile_blend", "sky")
 
 
+def device_events(events: list) -> list:
+    """A Chrome trace's kernel, copy and set events, by start time."""
+    return sorted(
+        (e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e),
+        key=lambda e: e["ts"],
+    )
+
+
+def busy_ms(dev: list) -> float:
+    """The union of the device events' intervals, in ms."""
+    busy_us, end = 0.0, float("-inf")
+    for e in dev:
+        a, b = e["ts"], e["ts"] + e["dur"]
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return busy_us / 1e3
+
+
+def host_syncs(events: list) -> list:
+    """The host's stream and device synchronisations in a trace."""
+    return [e for e in events if e.get("cat") == "cuda_runtime"
+            and e.get("name") in ("cudaStreamSynchronize", "cudaDeviceSynchronize")]
+
+
 def trace_summary(trace_path: str, wall_ms: float, views: int, stages=STAGES) -> dict:
     """From a Chrome trace of `views` views (or steps) that took
     `wall_ms` on the host: the device's busy time (union of kernel, copy
@@ -126,18 +151,10 @@ def trace_summary(trace_path: str, wall_ms: float, views: int, stages=STAGES) ->
     from its own thread outside the device span of the range."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
-    dev = sorted(
-        (e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e),
-        key=lambda e: e["ts"],
-    )
-    busy_us, end = 0.0, float("-inf")
-    for e in dev:
-        a, b = e["ts"], e["ts"] + e["dur"]
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
+    dev = device_events(events)
+    busy_us = busy_ms(dev) * 1e3
     runtime = [e for e in events if e.get("cat") == "cuda_runtime"]
-    syncs = [e for e in runtime if e.get("name") in ("cudaStreamSynchronize", "cudaDeviceSynchronize")]
+    syncs = host_syncs(events)
     launch_ts = {e["args"]["correlation"]: e["ts"] for e in runtime if "correlation" in e.get("args", {})}
     launched = [(launch_ts[k["args"]["correlation"]], k["dur"]) for k in dev
                 if k.get("cat") == "kernel" and k.get("args", {}).get("correlation") in launch_ts]

@@ -14,6 +14,7 @@ import torch
 
 from chip_smoke import (
     LONG_OPACITIES,
+    SEG_RTOL,
     compare_blend,
     compare_blend_bwd,
     live_lanes,
@@ -33,8 +34,8 @@ BLEND_TOL = dict(rtol=1e-5, atol=1e-5)
 # (see tests/test_torch_blend_bwd.py); the plain version's prefix sums
 # are parallel scans on the card, so their rounding differs more
 BWD_ATOL_SCALED = 1e-4
-# segment sums: f32 sums of a few normal rows, in key order in the
-# kernel and in atomic order in the plain version's index_add_
+# segment sums: f32 sums of a few normal rows, in the kernel's fixed
+# order and in atomic order in the plain version's index_add_
 SEG_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -128,9 +129,65 @@ def test_segment_rowsum_kernel_matches_plain(cuda_device, explicit):
     torch.cuda.synchronize()
     assert segsum.segment_rowsum.launches == before + 1
     torch.testing.assert_close(got, segsum.segment_rowsum_plain(*args, **kw), **SEG_TOL)
-    # the kernel sums in key order, as the plain version does on the CPU
     cpu = [a.cpu() for a in args]
-    torch.testing.assert_close(got.cpu(), segsum.segment_rowsum_plain(*cpu, **kw), rtol=0, atol=0)
+    if explicit:
+        # explicit segments: one thread sums a segment's rows in key
+        # order, as the plain version does on the CPU
+        want = segsum.segment_rowsum_plain(*cpu, **kw)
+    else:
+        # identity segments: a segment cut by a thread or tile boundary
+        # of the merge-path partition is summed in parts, combined in a
+        # fixed order that the emulation repeats on the CPU
+        want = segsum.segment_rowsum_emulated(*cpu, **kw)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["long_segment", "mostly_empty", "all_padding"])
+def test_segment_rowsum_kernel_on_ragged_segments(cuda_device, case):
+    """Bench-like raggedness: one segment of 20,000 rows (ten tiles of
+    the partition) among short ones; an identity space 90% empty, as
+    the sky's texels; only padding rows. Bit-equal to the emulation, and
+    within SEG_RTOL x sum|rows| of the plain version."""
+    rng = np.random.default_rng(7)
+    if case == "long_segment":
+        N = 3000
+        keys = np.sort(np.concatenate([np.full(20_000, 1234), rng.integers(0, N, 9000)]))
+    elif case == "mostly_empty":
+        N = 200_000
+        keys = np.sort(rng.choice(N // 10, 60_000) * 10 + rng.integers(0, 2, 60_000))
+    else:
+        N = 5000
+        keys = np.full(4000, segsum.BIG)
+    keys = torch.as_tensor(keys.astype(np.int32), device=cuda_device)
+    d = torch.as_tensor(rng.normal(size=(12, keys.numel())).astype(np.float32), device=cuda_device)
+    before = segsum.segment_rowsum.launches
+    got = segsum.segment_rowsum(d, keys, num_segments=N)
+    torch.cuda.synchronize()
+    assert segsum.segment_rowsum.launches == before + 1
+    assert torch.equal(got.cpu(), segsum.segment_rowsum_emulated(d.cpu(), keys.cpu(), num_segments=N))
+    ref = segsum.segment_rowsum_plain(d, keys, num_segments=N)
+    abs_sum = segsum.segment_rowsum_plain(d.abs(), keys, num_segments=N)
+    assert ((got - ref).abs() <= SEG_RTOL * abs_sum + 1e-30).all()
+    assert torch.equal(got, segsum.segment_rowsum(d, keys, num_segments=N))
+
+
+@pytest.mark.cuda
+def test_expand_runs_kernel_on_long_runs(cuda_device):
+    """Runs far longer than a tile of the partition (one of 20,000
+    slots), a leading gap and empty runs: exact, and equal to the
+    expansion walked through the partition in plain PyTorch."""
+    cnt = np.array([0, 20_000, 3, 0, 0, 4097, 1, 0, 2048], np.int32)
+    offs = (np.cumsum(cnt) - cnt + 5).astype(np.int32)
+    total = int(offs[-1] + cnt[-1])
+    vals = np.arange(3 * cnt.size, dtype=np.float32).reshape(3, -1) - 7.5
+    args = [torch.as_tensor(a, device=cuda_device) for a in (vals, offs)]
+    args.append(torch.tensor(total, dtype=torch.int32, device=cuda_device))
+    for S in (total - 3000, total + 5000):
+        got = fill.expand_runs(*args, S)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fill.expand_runs_plain(*args, S))
+        assert torch.equal(got.cpu(), fill.expand_runs_partitioned(*[a.cpu() for a in args], S))
 
 
 @pytest.mark.cuda

@@ -224,6 +224,31 @@ def test_trace_summary_counts_busy_time_and_stages(tmp_path):
     assert [k["name"] for k in got["top_kernels_per_view"]] == ["k1", "k2", "set"]
 
 
+def test_trace_stats_totals_per_step(tmp_path):
+    """script.trace_stats on a hand-made trace of 2 steps: busy time as
+    the union of device intervals, every kernel and host sync counted,
+    and the named kernels' time and launches."""
+    from street_gaussians_torch.script import trace_stats
+
+    events = [
+        {"cat": "kernel", "name": "segsum_tiles_kernel(float*)", "ts": 0.0, "dur": 100.0},
+        {"cat": "kernel", "name": "segsum_fixup_kernel(float*)", "ts": 50.0, "dur": 100.0},
+        {"cat": "kernel", "name": "expand_runs_kernel(float*)", "ts": 400.0, "dur": 20.0},
+        {"cat": "gpu_memcpy", "name": "copy", "ts": 300.0, "dur": 50.0},
+        {"cat": "cuda_runtime", "name": "cudaStreamSynchronize", "ts": 10.0, "dur": 5.0},
+        {"cat": "cuda_runtime", "name": "cudaDeviceSynchronize", "ts": 20.0, "dur": 5.0},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 30.0, "dur": 1.0},
+    ]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    got = trace_stats.trace_stats(str(path), 2, ["segsum", "expand_runs", "absent"])
+    assert got["busy_ms"] == pytest.approx(0.11)
+    assert (got["kernels"], got["host_syncs"]) == (1.5, 1.0)
+    assert got["named"]["segsum"] == pytest.approx({"ms": 0.1, "launches": 1.0})
+    assert got["named"]["expand_runs"] == pytest.approx({"ms": 0.01, "launches": 0.5})
+    assert got["named"]["absent"] == {"ms": 0.0, "launches": 0.0}
+
+
 def test_port_imports_no_jax():
     """Every module of the port (and chip_smoke.py) imports with jax,
     jaxlib, yaml and street_gaussians_tpu made unimportable, and loads

@@ -4,8 +4,8 @@ interpret mode), with identity and explicit segments, empty segments,
 padding keys and one segment spanning many of the JAX kernel's chunks.
 
 Tolerance: rtol = atol = 1e-5. Both sum f32 rows; the JAX kernel as a
-0/1 matrix product over 128-row chunks, the port in key order, so the
-two differ by the order of their sums (a few ulp of sums of a few
+0/1 matrix product over 128-row chunks, the port's plain version in key
+order, so the two differ by the order of their sums (a few ulp of sums of a few
 standard-normal rows, up to 512 rows in the spanning case).
 """
 
@@ -92,8 +92,11 @@ def test_one_segment_spans_chunks():
 
 
 def test_plain_sums_in_key_order_exactly():
-    """The plain version adds each segment's rows in key order from 0,
-    as the kernel does: equal to a sequential f32 sum bit for bit."""
+    """The plain version adds each segment's rows in key order from 0
+    (as the kernel does for explicit segments; for identity segments it
+    adds a segment cut by its partition in parts, see
+    tests/test_torch_merge_path.py): equal to a sequential f32 sum bit
+    for bit."""
     rng = np.random.default_rng(5)
     keys = np.sort(rng.integers(0, 20, size=200)).astype(np.int32)
     d = (rng.standard_normal((3, 200)) * 10.0 ** rng.integers(-3, 4, (3, 200))).astype(np.float32)
