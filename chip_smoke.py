@@ -47,8 +47,23 @@
    instance and go through the table kernels and the segmented row-sum;
    runs the probe (script.probe_kernel) on the bench frame's payload;
    times the four and computes their bounds;
-8. prints one `kernels` JSON line with all eight kernels;
-9. prints {"ok": true, "device": {...}} as the last line.
+8. writes a Waymo-format sequence (data.synthetic_waymo, 10 frames of 3
+   cameras at Waymo's 1280x1920, 25,000 LiDAR points a frame, the tracked
+   vehicle in view), loads it with the port's loaders (1600x1067 views)
+   and trains it with the Waymo recipe, object-opacity loss on: 3 warm-up
+   steps, 10 timed steps before densify_until_iter and 10 after, which
+   must be finite, drop no instance, launch the blend kernels twice a step
+   after the gate and once before; one step at the gate repeats bit for
+   bit, and the four main-path kernels are held against their plain
+   versions on the inputs that step gave them, for the full render and
+   for the object render (`[runs]` lines: their run lengths); the same
+   views at the gate with and without the object loss, in turns, give
+   the object render's cost; a profile of two steps on each side gives
+   their device time, kernels and host syncs (`object_render` range);
+   then two small train steps across the gate, card against CPU;
+9. prints one `kernels` JSON line with all eight kernels (with the
+   loaded sequence's launches before and after the gate);
+10. prints {"ok": true, "device": {...}} as the last line.
 
 Any failure raises (exit code != 0). Without CUDA, or without the rest
 of the repository beside it, it fails before printing a result.
@@ -82,6 +97,41 @@ B_FLIP_TOL = 1e-2
 VIEWS = 8
 TRAIN_WARMUP = 3
 TRAIN_STEPS = 10
+# the loaded Waymo-format sequence (step 8): Waymo's FRONT resolution,
+# 10 frames of 3 cameras; 25,000 LiDAR points a frame
+SEQ_FRAMES = 10
+SEQ_IMAGE = (1280, 1920)
+SEQ_POINTS = 25_000
+SEQ_CAPACITY = 1_572_864
+# the Waymo recipe on that sequence: configs/experiments_waymo/_base.yaml,
+# then configs/example/waymo_train_002.yaml over it (the card's machine has
+# no PyYAML). Left out: source_path and selected_frames (the sequence is
+# written here, 10 frames), the tracker's boxes (use_tracker: the writer
+# writes only the ground-truth track file), lambda_mask and
+# prune_box_interval (no term or cadence reads them), the schedules'
+# lengths beyond the steps run here, and render.fps / concat_cameras.
+WAYMO_RECIPE = {
+    "data": {"type": "Waymo", "split_train": 1, "split_test": -1, "cameras": [0, 1, 2], "use_tracker": False,
+             "extent": 10, "use_colmap": True, "white_background": False, "filter_colmap": True},
+    "model": {"gaussian": {"sh_degree": 1, "fourier_dim": 5, "fourier_scale": 1.0, "flip_prob": 0.5},
+              "nsg": {"include_bkgd": True, "include_obj": True, "include_sky": True, "opt_track": True}},
+    "optim": {
+        "densification_interval": 100, "densify_from_iter": 500, "densify_grad_threshold": 0.0002,
+        "densify_until_iter": 25000, "feature_lr": 0.0025, "max_screen_size": 20, "min_opacity": 0.005,
+        "opacity_lr": 0.05, "opacity_reset_interval": 3000, "percent_big_ws": 0.1, "percent_dense": 0.01,
+        "position_lr_delay_mult": 0.01, "position_lr_final": 1.6e-06, "position_lr_init": 0.00016,
+        "position_lr_max_steps": 50000, "rotation_lr": 0.001, "scaling_lr": 0.005, "semantic_lr": 0.01,
+        "lambda_l1": 1.0, "lambda_dssim": 0.2, "lambda_reg": 0.1, "lambda_depth_lidar": 0.1,
+        "lambda_sky": 0.05, "lambda_sky_scale": [1, 1, 0],
+        "track_position_lr_delay_mult": 0.01, "track_position_lr_init": 0.005,
+        "track_position_lr_final": 5.0e-5, "track_position_max_steps": 30000,
+        "track_rotation_lr_delay_mult": 0.01, "track_rotation_lr_init": 0.001,
+        "track_rotation_lr_final": 1.0e-5, "track_rotation_max_steps": 30000,
+        "densify_grad_threshold_bkgd": 0.0006, "densify_grad_abs_bkgd": True,
+        "densify_grad_threshold_obj": 0.0002, "densify_grad_abs_obj": False,
+    },
+    "render": {"tile_capacity": 0, "instance_capacity": SEQ_CAPACITY},
+}
 # the blend backward against its plain version: each gradient row scaled
 # by its largest |plain value|. The two differ in the order of their sums
 # (and the plain version's prefix sums are parallel scans on the card);
@@ -529,6 +579,11 @@ def main() -> int:
     # ---- 7. the dense-table layout and the probe ----
     table_kernels = table_phase(dev, screen, H, W, b_args, b_ref, b_plain, bound(b_bytes, b_ops))
 
+    # ---- 8. a Waymo-format sequence from disk, trained across the gate ----
+    del screen, b_args, b_ref
+    torch.cuda.empty_cache()
+    seq = waymo_phase(dev)
+
     kernels = []
     train = {"path": f"{TRAIN_STEPS} train steps"}
     for name, src, rep, n, err, ms, plain, lib, (bms, by), extra in (
@@ -545,6 +600,11 @@ def main() -> int:
     ):
         if "train" in extra["path"]:
             extra = {**extra, "launches_per_step": n / TRAIN_STEPS}
+        if name in seq["errors"]:
+            err = max(err, seq["errors"][name])
+        if name in seq["launches"]:
+            extra = {**extra, "waymo_launches": seq["launches"][name],
+                     "waymo_launches_per_step": {k: v / TRAIN_STEPS for k, v in seq["launches"][name].items()}}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": n, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
                         "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": lib, **extra})
@@ -554,6 +614,7 @@ def main() -> int:
     log(f"[kernel] bench-frame counts: expand_runs bytes {a_bytes}, compares {a_ops}; "
         f"tile_blend bytes {b_bytes}, f32 ops {b_ops}")
 
+    log(f"[waymo] summary: {json.dumps({k: v for k, v in seq.items() if k not in ('launches', 'errors')})}")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -697,6 +758,282 @@ def table_phase(dev, screen, H, W, b_args, b_ref, b_plain, b_bound) -> list:
     ]
 
 
+def merge_config(cfg, overrides: dict):
+    """cfg with the nested dict `overrides` written over it."""
+    for k, v in overrides.items():
+        if isinstance(v, dict):
+            merge_config(cfg[k], v)
+        else:
+            cfg[k] = v
+    return cfg
+
+
+def waymo_phase(dev) -> dict:
+    """Step 8: write a Waymo-format sequence at Waymo's resolution, load it
+    with the port's loaders, and train it with the Waymo recipe (the
+    object-opacity loss on) on both sides of densify_until_iter; then two
+    small train steps across that gate, card against CPU. Returns the
+    main-path kernels' launches before and after the gate, their largest
+    errors on the gate step's inputs, and the times."""
+    import copy
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    from street_gaussians_torch import native, serve
+    from street_gaussians_torch.config import default_config
+    from street_gaussians_torch.data import waymo
+    from street_gaussians_torch.data.dataset import _resize_shape, load_ground_truth, load_waymo_scene
+    from street_gaussians_torch.data.synthetic_waymo import write_synthetic_waymo
+    from street_gaussians_torch.models import sky_cubemap
+    from street_gaussians_torch.ops import fill, rasterize, segsum, tile_raster2
+    from street_gaussians_torch.runner import build_initial_params, render_opts_from_cfg
+    from street_gaussians_torch.train_lib import Draws, flatten_params, init_train_state, make_train_step
+
+    kernels = (fill.expand_runs, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd,
+               segsum.segment_rowsum)
+    tmp = tempfile.mkdtemp(prefix="sg_waymo_")
+    try:
+        root = os.path.join(tmp, "seq")
+        # ---- 8a. write ----
+        t0 = time.perf_counter()
+        write_synthetic_waymo(root, num_frames=SEQ_FRAMES, cameras=(0, 1, 2), image_size=SEQ_IMAGE,
+                              points_per_frame=SEQ_POINTS, seed=0, actor_in_view=True)
+        t_write = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+        log(f"[waymo] wrote {SEQ_FRAMES} frames x 5 sensors at {SEQ_IMAGE[1]}x{SEQ_IMAGE[0]}, "
+            f"{SEQ_POINTS} LiDAR points a frame: {nbytes / 2**20:.1f} MiB in {t_write:.2f} s")
+
+        # ---- 8b. load, once, its stages timed where the loader calls them ----
+        cfg = merge_config(default_config(), copy.deepcopy(WAYMO_RECIPE))
+        cfg.source_path, cfg.model_path, cfg.mode = root, os.path.join(tmp, "out"), "train"
+        lib = native.load_native() is not None
+        stages = {"parse": CallRecorder(waymo.generate_dataparser_outputs, [waymo]),
+                  "clouds": CallRecorder(waymo._build_pointclouds, [waymo]),
+                  "png": CallRecorder(waymo.imread, [waymo])}
+        t0 = time.perf_counter()
+        np.random.seed(0)  # the actor's grid colours
+        try:
+            scene = load_waymo_scene(cfg, device=dev)
+            torch.cuda.synchronize()
+        finally:
+            for rec in stages.values():
+                rec.restore()
+        t_load = time.perf_counter() - t0
+        parsed = stages["parse"].result
+        clouds = parsed.points_xyz_dict
+        t_parse, t_clouds, t_png = (stages[k].seconds for k in ("parse", "clouds", "png"))
+        views = scene.train_views
+        H, W = views[0].H, views[0].W
+        log(f"[waymo] loaded in {t_load:.2f} s: parsing and obj_bound masks {t_parse - t_clouds:.2f} s, point "
+            f"clouds {t_clouds:.2f} s, of which {len(stages['png'].calls)} PNG decodes (sizes and point colours) "
+            f"{t_png:.2f} s; packing and views {t_load - t_parse:.2f} s; native library "
+            f"{'loaded' if lib else 'not loaded (scipy and numpy fallback)'}")
+        log(f"[waymo] {len(views)} views at {W}x{H}, {scene.table.num_actors} actor(s) "
+            f"{scene.table.names[1:]}, LiDAR {clouds['lidar'].shape[0]} background points after the voxel and "
+            f"outlier filters, actor clouds {[clouds[k].shape[0] for k in clouds if k.startswith('obj_')]} points "
+            f"(grid init below 2,000), packed rows {scene.table.capacity}, "
+            f"obj_bound pixels {[int(b.sum()) for b in parsed.obj_bounds[:3]]} in the first frame's views")
+        if (W, H) != _resize_shape(SEQ_IMAGE[1], SEQ_IMAGE[0])[:2] or len(views) != 3 * SEQ_FRAMES \
+                or scene.table.num_actors < 1:
+            raise AssertionError(f"loaded {len(views)} views at {W}x{H}, {scene.table.num_actors} actors")
+        t0 = time.perf_counter()
+        gts = [load_ground_truth(v, device=dev) for v in views]
+        torch.cuda.synchronize()
+        log(f"[waymo] ground truth of {len(gts)} views (decode, area resize to {W}x{H}, guidance) on the card "
+            f"in {time.perf_counter() - t0:.2f} s")
+
+        # ---- 8c. train across the gate ----
+        gate = TRAIN_WARMUP + TRAIN_STEPS
+        cfg.optim.densify_until_iter = gate
+        params = build_initial_params(cfg, scene, device=dev)
+        opts = render_opts_from_cfg(cfg, "train")
+        step_fn = make_train_step(cfg, scene.table, scene.pose_data, opts)
+        state = init_train_state(params, scene.aux_init)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        order = np.random.default_rng(0).permutation(len(views))
+        view_of = lambda s: order[s % len(views)]  # noqa: E731
+
+        def step(st, **kw):
+            i = view_of(st.step)
+            return step_fn(st, views[i].frame_input, gts[i], gen, **kw)
+
+        for i in range(TRAIN_WARMUP):
+            t0 = time.perf_counter()
+            new, sc = step(state)
+            while int(sc["overflow"]) != 0:
+                opts = dataclasses.replace(opts, instance_capacity=2 * opts.instance_capacity)
+                log(f"[waymo] warm-up step {i} dropped {int(sc['overflow'])} instances: instance capacity raised "
+                    f"to {opts.instance_capacity}")
+                step_fn = make_train_step(cfg, scene.table, scene.pose_data, opts)
+                new, sc = step(state)
+            state = new
+            torch.cuda.synchronize()
+            log(f"[waymo] warm-up step {i}: {1e3 * (time.perf_counter() - t0):.1f} ms wall, loss "
+                f"{float(sc['loss']):.6f}, {int(sc['num_alive'])} alive")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        runs = {}
+        for side in ("before", "after"):
+            for k in kernels:
+                k.launches = 0
+            ms, records = [], []
+            for _ in range(TRAIN_STEPS):
+                if side == "after" and not records:
+                    at_gate = state
+                if side == "before" and len(records) == TRAIN_STEPS - 2:
+                    before_gate = state
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                state, sc = step(state)
+                e1.record()
+                torch.cuda.synchronize()
+                ms.append(e0.elapsed_time(e1))
+                records.append(sc)
+            runs[side] = dict(ms=ms, records=records, launches={k.__name__: k.launches for k in kernels})
+        peak = torch.cuda.max_memory_allocated(dev)
+        for side, run in runs.items():
+            for i, sc in enumerate(run["records"]):
+                loss = float(sc["loss"])
+                if not math.isfinite(loss) or int(sc["overflow"]) != 0:
+                    raise AssertionError(f"waymo step {side} the gate {i}: loss {loss}, overflow {int(sc['overflow'])}")
+                if (side == "after") != ("obj_acc_loss" in sc):
+                    raise AssertionError(f"waymo step {side} the gate: obj_acc_loss {'missing' if side == 'after' else 'present'}")
+                if side == "after" and not float(sc["obj_acc_loss"]) > 0:
+                    raise AssertionError(f"waymo step after the gate: obj_acc_loss {float(sc['obj_acc_loss'])}")
+            ms = run["ms"]
+            log(f"[waymo] {TRAIN_STEPS} steps {side} the gate (densify_until_iter {gate}): mean "
+                f"{sum(ms) / len(ms):.3f} ms/step (min {min(ms):.3f}, max {max(ms):.3f}); losses "
+                f"{[round(float(sc['loss']), 5) for sc in run['records']]}; obj_acc_loss "
+                f"{[round(float(sc['obj_acc_loss']), 5) for sc in run['records'] if 'obj_acc_loss' in sc]}; "
+                f"launches {run['launches']}")
+        for v in flatten_params(state.params).values():
+            if not torch.isfinite(v).all():
+                raise AssertionError("waymo: non-finite parameter after training")
+        before, after = runs["before"]["launches"], runs["after"]["launches"]
+        if (before["tile_blend_instances"] != TRAIN_STEPS or before["tile_blend_bwd"] != TRAIN_STEPS
+                or after["tile_blend_instances"] != 2 * TRAIN_STEPS or after["tile_blend_bwd"] != 2 * TRAIN_STEPS
+                or before["segment_rowsum"] != 2 * TRAIN_STEPS or after["segment_rowsum"] != 3 * TRAIN_STEPS
+                or before["expand_runs"] < TRAIN_STEPS or after["expand_runs"] != 2 * before["expand_runs"]):
+            raise AssertionError(f"waymo launches before the gate {before}, after {after}")
+        log(f"[waymo] peak memory {peak / 2**30:.3f} GiB over the {2 * TRAIN_STEPS} timed steps; the blend "
+            f"kernels launch twice a step after the gate")
+
+        # ---- 8d. one step twice from the same state, at the gate ----
+        C = scene.table.capacity
+        draws = Draws(torch.rand(C, generator=gen, device=dev) < 0.5,
+                      torch.rand((H, W, 2), generator=gen, device=dev) - 0.5)
+        # the first run's kernel inputs, full render and object render, for 8e
+        recs = {"expand_runs": CallRecorder(fill.expand_runs, [fill]),
+                "forward": CallRecorder(tile_raster2._forward, [tile_raster2]),
+                "tile_blend_bwd": CallRecorder(tile_raster2.tile_blend_bwd, [tile_raster2]),
+                "segment_rowsum": CallRecorder(segsum.segment_rowsum, [rasterize, sky_cubemap])}
+        try:
+            s1, sc1 = step(at_gate, draws=draws)
+        finally:
+            for rec in recs.values():
+                rec.restore()
+        s2, _ = step(at_gate, draws=draws)
+        for name, a, b in [
+            *((f"params {k}", v, flatten_params(s2.params)[k]) for k, v in flatten_params(s1.params).items()),
+            *((f"adam {m} {k}", v, getattr(s2.adam, m)[k]) for m in ("mu", "nu", "count")
+              for k, v in getattr(s1.adam, m).items()),
+            ("aux max_radii", s1.aux.max_radii, s2.aux.max_radii),
+        ]:
+            if not torch.equal(a, b):
+                raise AssertionError(f"waymo step at the gate not bit-reproducible: {name}")
+        log(f"[check] one waymo step at the gate twice from the same state: bit-equal (obj_acc_loss "
+            f"{float(sc1['obj_acc_loss']):.6f})")
+        del s1, s2
+
+        # ---- 8e. the kernels on the gate step's own inputs ----
+        errors = gate_step_checks(recs, C, f"loaded view {W}x{H}")
+        del recs
+        torch.cuda.empty_cache()
+
+        # ---- 8f. the object render's cost, unprofiled: the same states,
+        # views and draws through the step with the object loss and
+        # through one without it (lambda_reg 0), in turns ----
+        cfg_no_obj = copy.deepcopy(cfg)
+        cfg_no_obj.optim.lambda_reg = 0.0
+        fns = {"with": step_fn, "without": make_train_step(cfg_no_obj, scene.table, scene.pose_data, opts)}
+        paired = {"with": [], "without": []}
+        for j in range(TRAIN_STEPS):
+            i = view_of(at_gate.step + j)
+            for which in (("with", "without") if j % 2 == 0 else ("without", "with")):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                fns[which](at_gate, views[i].frame_input, gts[i], draws=draws)
+                e1.record()
+                torch.cuda.synchronize()
+                paired[which].append(e0.elapsed_time(e1))
+        mean = {k: sum(v) / len(v) for k, v in paired.items()}
+        log(f"[waymo] the same {TRAIN_STEPS} views at the gate, in turns: with the object render "
+            f"{mean['with']:.3f} ms/step, without {mean['without']:.3f} (lambda_reg 0): the object render "
+            f"adds {mean['with'] - mean['without']:.3f} ms/step; across the gate the means differ by "
+            f"{sum(runs['after']['ms']) / TRAIN_STEPS - sum(runs['before']['ms']) / TRAIN_STEPS:.3f} ms/step")
+        del fns
+
+        # ---- 8g. profiles of two steps on each side of the gate ----
+        from torch.profiler import ProfilerActivity, profile
+
+        from street_gaussians_torch.script import trace_stats
+
+        prof_steps = 2
+        busy = {}
+        for side, st in (("before", before_gate), ("after", at_gate)):
+            trace = os.path.join(tmp, f"{side}.json")
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(prof_steps + 1)]
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                ev[0].record()
+                for k in range(prof_steps):
+                    st, _ = step(st)
+                    ev[k + 1].record()
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            prof.export_chrome_trace(trace)
+            summ = serve.trace_summary(trace, wall, prof_steps, ("object_render", "screen_space", "backward"))
+            summ["events_ms"] = [ev[k].elapsed_time(ev[k + 1]) for k in range(prof_steps)]
+            summ["stats"] = trace_stats.trace_stats(trace, prof_steps)  # busy ms, kernels, syncs a step
+            with open(trace) as f:
+                launched = [e for e in serve.device_events(json.load(f)["traceEvents"]) if e["cat"] == "kernel"]
+            summ["kernel_busy_ms"] = serve.busy_ms(launched) / prof_steps
+            busy[side] = summ
+            obj, stats = summ["per_view"]["object_render"], summ["stats"]
+            log(f"[waymo] profiled {prof_steps} steps {side} the gate: wall {wall / prof_steps:.3f} ms/step, CUDA "
+                f"events {[round(x, 3) for x in summ['events_ms']]} ms; device busy {stats['busy_ms']:.3f} ms/step "
+                f"(kernels alone {summ['kernel_busy_ms']:.3f}), idle share {summ['idle_share']:.3f}; "
+                f"{stats['kernels']:.1f} kernels and {stats['host_syncs']:.1f} host syncs a step; object_render range: "
+                f"{obj['launched_kernel_ms']:.3f} ms of kernels, {obj['launched_kernels']:.0f} kernels, "
+                f"{obj['host_syncs']:.1f} host syncs, host {obj['host_ms']:.3f} ms; backward launched "
+                f"{summ['per_view']['backward']['launched_kernel_ms']:.3f} ms")
+        if not busy["after"]["per_view"]["object_render"]["launched_kernels"] > 0:
+            raise AssertionError("waymo: no kernel in the object_render range after the gate")
+        del state, at_gate, before_gate, params, scene, gts
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- 8h. card against CPU across the gate ----
+    small_step_check(dev, lambda_reg=0.1)
+    return {
+        "launches": {name: {"before_gate": before[name], "after_gate": after[name]} for name in before},
+        "ms_per_step": {side: sum(r["ms"]) / len(r["ms"]) for side, r in runs.items()},
+        "peak_gib": peak / 2**30,
+        "paired_ms_per_step": mean,
+        "object_render_ms": mean["with"] - mean["without"],
+        "profiled": {side: {"events_ms": b["events_ms"], "device_busy_ms": b["stats"]["busy_ms"],
+                            "kernel_busy_ms": b["kernel_busy_ms"], "kernels": b["stats"]["kernels"],
+                            "host_syncs": b["stats"]["host_syncs"],
+                            "object_render_kernel_ms": b["per_view"]["object_render"]["launched_kernel_ms"]}
+                     for side, b in busy.items()},
+        "errors": errors,
+    }
+
+
 def search_only_ms(fn, reps: int) -> float:
     """fn()'s device ms with segsum.cu and fill.cu from their
     search-only probe build (script.search_times)."""
@@ -727,20 +1064,25 @@ def _numpy(tree):
 
 
 class CallRecorder:
-    """Stands in for a kernel wrapper under its own name in `modules`
-    (where its callers, and the wrapper's own launch count, look it up):
-    records each call's arguments and forwards `launches` to the
-    wrapper."""
+    """Stands in for a function (a kernel wrapper, a loader stage) under
+    its own name in `modules` (where its callers, and a wrapper's own
+    launch count, look it up): records each call's arguments, the host
+    seconds spent in it and its last result, and forwards `launches` to
+    the wrapper."""
 
     def __init__(self, fn, modules):
         self.fn, self.modules, self.calls = fn, modules, []
+        self.seconds, self.result = 0.0, None
         self.__name__ = fn.__name__
         for m in modules:
             setattr(m, fn.__name__, self)
 
     def __call__(self, *args, **kwargs):
         self.calls.append((args, kwargs))
-        return self.fn(*args, **kwargs)
+        t0 = time.perf_counter()
+        self.result = self.fn(*args, **kwargs)
+        self.seconds += time.perf_counter() - t0
+        return self.result
 
     @property
     def launches(self):
@@ -755,16 +1097,83 @@ class CallRecorder:
             setattr(m, self.fn.__name__, self.fn)
 
 
-def small_step_check(dev):
+def gate_step_checks(recs: dict, capacity: int, where: str) -> dict:
+    """Step 8e: the four main-path kernels on the inputs that one train
+    step at the gate gave them, for the full render and for the object
+    render (`recs`: CallRecorders of fill.expand_runs,
+    tile_raster2._forward, tile_raster2.tile_blend_bwd and
+    segsum.segment_rowsum), against their plain versions at the
+    tolerances of steps 3 and 5, with the run lengths of both renders.
+    Returns each kernel's largest error."""
+    from street_gaussians_torch.ops import fill, segsum, tile_raster2
+    from street_gaussians_torch.script import block_times
+
+    n = {k: len(r.calls) for k, r in recs.items()}
+    if n != {"expand_runs": 2, "forward": 2, "tile_blend_bwd": 2, "segment_rowsum": 3}:
+        raise AssertionError(f"a train step at the gate made {n} kernel calls")
+    renders = ("full", "object")  # the order of the forward calls
+    err = {}
+    with torch.no_grad():
+        for label, (args, _) in zip(renders, recs["expand_runs"].calls):
+            vals, offs, total, S = args
+            if not torch.equal(fill.expand_runs(*args), fill.expand_runs_plain(*args)):
+                raise AssertionError(f"expand_runs kernel != plain, {where}, {label} render")
+            log(f"[check] expand_runs {where}, {label} render (C={vals.shape[0]}, N={vals.shape[1]}, S={S}, "
+                f"total={int(total)}): exact")
+        err["expand_runs"] = 0.0
+        label_of, err["tile_blend_instances"] = {}, 0.0
+        for label, (args, _) in zip(renders, recs["forward"].calls):
+            payload, starts, counts, F, gx, T = args
+            label_of[payload.data_ptr()] = label
+            log(f"[runs] {where}, {label} render: {json.dumps(block_times.run_length_stats(counts))}")
+            err["tile_blend_instances"] = max(err["tile_blend_instances"], compare_blend(
+                tile_raster2.tile_blend_instances(*args), tile_raster2.tile_blend_plain(*args), F,
+                f"tile_blend {where}, {label} render ({T} tiles)"))
+        seen, err["tile_blend_bwd"] = [], 0.0
+        for args, kw in recs["tile_blend_bwd"].calls:
+            payload, starts, counts, out, gout, F, gx, T = args
+            label = label_of.get(payload.data_ptr())
+            seen.append(label)
+            got = tile_raster2.tile_blend_bwd(*args, **kw)
+            if not torch.equal(got, tile_raster2.tile_blend_bwd(*args)):
+                raise AssertionError(f"tile_blend_bwd {where}, {label} render: with and without the forward's "
+                                     f"state not bit-equal")
+            err["tile_blend_bwd"] = max(err["tile_blend_bwd"], compare_blend_bwd(
+                got, tile_raster2.tile_blend_bwd_plain(*args), live_lanes(payload, starts, counts), F,
+                f"tile_blend_bwd {where}, {label} render ({T} tiles)"))
+        if sorted(seen, key=str) != sorted(renders):
+            raise AssertionError(f"the gate step's backward calls were not one per render: {seen}")
+        # the payload calls' keys: the rows in a segment are a prefix
+        calls = [(a[0], a[1], kw["num_segments"]) for a, kw in recs["segment_rowsum"].calls]
+        rows = sorted((int((k < N).sum()) for _, k, N in calls if N == capacity), reverse=True)
+        err["segment_rowsum"] = 0.0
+        for d, keys, N in calls:
+            what = "sky" if N != capacity else renders[rows.index(int((keys < N).sum()))] + " render's payload"
+            what = f"segment_rowsum {where}, {what} (C={d.shape[0]}, L={d.shape[1]}, N={N})"
+            got = segsum.segment_rowsum(d, keys, num_segments=N)
+            err["segment_rowsum"] = max(err["segment_rowsum"], compare_segsum(
+                got, segsum.segment_rowsum_plain(d, keys, num_segments=N),
+                segsum.segment_rowsum_plain(d.abs(), keys, num_segments=N), what))
+            check_emulated(got, d, keys, N, what)
+        if len(rows) != 2:
+            raise AssertionError(f"the gate step made {len(rows)} payload row-sums, expected 2")
+    return err
+
+
+def small_step_check(dev, lambda_reg: float = 0.0):
     """Two train steps of a small scene (64x96, 600 background points, 2
     actors flipped with probability 0.5, a 16-texel sky) on the card
     and on the CPU from the same state, ground truth and draws: the
     first step's gradients, then the parameters, moments and statistics
-    after two steps, card against CPU."""
+    after two steps, card against CPU. With lambda_reg > 0 the second
+    step is at densify_until_iter, so that it renders the actors alone
+    for the object-opacity loss, supervised by an obj_bound taken from
+    the actors' own render."""
     import dataclasses
 
     from street_gaussians_torch import train
-    from street_gaussians_torch.train_lib import Draws, flatten_params
+    from street_gaussians_torch.models.renderer import render_frame, render_object_mask
+    from street_gaussians_torch.train_lib import Draws, flatten_params, make_train_step
 
     # random rotations and anisotropic scales, as in the CPU tests: with
     # the synthetic scene's identity rotations and isotropic scales the
@@ -772,6 +1181,17 @@ def small_step_check(dev):
     devices = (torch.device("cpu"), dev)
     cells = [train.bench_train_cell(d, seed=3, sky_resolution=16, num_bkgd=600, num_actors=2, H=64, W=96)
              for d in devices]
+    if lambda_reg > 0:
+        for i, c in enumerate(cells):
+            c.cfg.optim.lambda_reg = lambda_reg
+            c.cfg.optim.densify_until_iter = c.state.step + 1
+            cells[i] = dataclasses.replace(c, step_fn=make_train_step(c.cfg, c.scene.table, c.scene.pose_data, c.opts))
+        c = cells[0]
+        with torch.no_grad():
+            obj = render_frame(c.state.params, c.scene.aux, c.scene.table, c.scene.pose_data, c.frame, 0,
+                               opts=dataclasses.replace(c.opts, mode="eval"),
+                               include_mask=render_object_mask(c.scene.table), compose_sky=False)
+        cells[0] = dataclasses.replace(c, gt=dataclasses.replace(c.gt, obj_bound=obj["acc"][..., None] > 0.2))
     g0, aux0 = cells[0].state.params.gaussians, cells[0].state.aux
     rng = np.random.default_rng(8)
     C = g0.xyz.shape[0]
@@ -795,6 +1215,8 @@ def small_step_check(dev):
         for i in range(2):
             state, sc = cell.step_fn(state, cell.frame, cell_gt, draws=dr[i])
             losses.append(float(sc["loss"]))
+        if lambda_reg > 0 and not float(sc.get("obj_acc_loss", 0.0)) > 0:
+            raise AssertionError("small step at the gate: no object-opacity loss")
         res.append(dict(grads=_numpy(grads), params=_numpy(flatten_params(state.params)),
                         mu=_numpy(state.adam.mu), count=_numpy(state.adam.count), losses=losses,
                         accum=state.aux.grad_accum.cpu().numpy(), denom=state.aux.denom.cpu().numpy()))
@@ -813,7 +1235,8 @@ def small_step_check(dev):
     grads_close(a["accum"], b["accum"], "small step grad_accum")
     if not np.array_equal(a["denom"], b["denom"]):
         raise AssertionError("small step denom differs")
-    log(f"[check] small train step (64x96, 2 actors, sky 16), 2 steps, card vs CPU: losses "
+    log(f"[check] small train step (64x96, 2 actors, sky 16, lambda_reg {lambda_reg}"
+        f"{', second step at the gate' if lambda_reg > 0 else ''}), 2 steps, card vs CPU: losses "
         f"{a['losses']} vs {b['losses']}; gradients, parameters, moments and statistics within the "
         f"CPU tests' tolerances")
 

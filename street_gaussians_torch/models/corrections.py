@@ -10,6 +10,7 @@ from typing import Optional
 
 import torch
 
+from street_gaussians_torch._device import resolve_device
 from street_gaussians_torch.utils.losses import jnp_abs
 from street_gaussians_torch.utils.quaternion import (
     quat_multiply,
@@ -24,6 +25,12 @@ class ColorCorrectionParams:
 
     affine: torch.Tensor  # [N, 3, 4]
     affine_sky: torch.Tensor  # [N, 3, 4]
+
+
+def init_color_correction(num: int, device=None) -> ColorCorrectionParams:
+    """num identity transforms on `device`."""
+    eye = torch.eye(4, device=resolve_device(device))[:3].expand(num, 3, 4).contiguous()
+    return ColorCorrectionParams(affine=eye, affine_sky=eye.clone())
 
 
 def apply_color_correction(params: ColorCorrectionParams, idx: int, rgb: torch.Tensor) -> torch.Tensor:
@@ -45,6 +52,14 @@ class PoseCorrectionParams:
 
     trans: torch.Tensor  # [N, 3]
     rots: torch.Tensor  # [N, 4] (w, x, y, z)
+
+
+def init_pose_correction(num: int, device=None) -> PoseCorrectionParams:
+    """num identity corrections on `device`."""
+    device = resolve_device(device)
+    rots = torch.zeros((num, 4), device=device)
+    rots[:, 0] = 1.0
+    return PoseCorrectionParams(trans=torch.zeros((num, 3), device=device), rots=rots)
 
 
 def correct_gaussian_xyz(

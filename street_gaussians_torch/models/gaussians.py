@@ -96,6 +96,31 @@ def _round_up(n: int, r: int) -> int:
     return ((n + r - 1) // r) * r
 
 
+def make_actor_grid_points(bbox: np.ndarray, points_dim: int = 20):
+    """Random-init actor cloud: a points_dim^3 grid filling the bbox, with
+    colours from numpy's global generator (as the JAX package draws them)."""
+    lin = np.linspace(-1.0, 1.0, points_dim)
+    gx, gy, gz = np.meshgrid(lin, lin, lin)
+    xyz = np.stack([gx.reshape(-1), gy.reshape(-1), gz.reshape(-1)], axis=-1)
+    xyz = xyz * (np.asarray(bbox) / 2.0)
+    rgb = np.random.rand(*xyz.shape).astype(np.float32)
+    return xyz.astype(np.float32), rgb
+
+
+def mirror_points(xyz: np.ndarray, rgb: np.ndarray, axis: int = 1):
+    """Symmetry-prior init: the side of `axis` with more points,
+    reflected across it and appended."""
+    pos = xyz[:, axis] > 0
+    neg = xyz[:, axis] < 0
+    part = pos if pos.sum() >= neg.sum() else neg
+    flip_xyz = xyz[part].copy()
+    flip_xyz[:, axis] *= -1
+    return (
+        np.concatenate([xyz, flip_xyz], axis=0),
+        np.concatenate([rgb, rgb[part]], axis=0),
+    )
+
+
 def pack_scene(
     model_points: Dict[str, np.ndarray],
     model_colors: Dict[str, np.ndarray],

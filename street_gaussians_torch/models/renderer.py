@@ -6,19 +6,23 @@ metadata), then preprocess -> binning -> tile blend, then sky cubemap
 compositing and color correction. Per-frame visibility (actor lifetime)
 goes through the `alive` mask; shapes never change.
 
-Train mode draws the symmetry flip of the actors and the sky's
-sub-pixel ray jitter from a torch.Generator, or takes them as tensors
-(`flip`, `sky_jitter`), so a caller can feed the JAX package's draws.
+Train mode takes the symmetry flip of the actors and the sky's
+sub-pixel ray jitter as tensors (`flip`, `sky_jitter`), drawn by the
+caller (draw_flip, draw_sky_jitter) or taken from the JAX package.
+An include mask ([M] bool over the models) renders a subset of them:
+the actors alone (render_object_mask) or the background alone
+(render_background_mask).
 
-Not ported yet: semantics, normals, include masks (render_object /
-render_background), tile-row sharding and sky_downsample > 2.
+Not ported yet: semantics, normals, tile-row sharding and
+sky_downsample > 2.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -145,11 +149,14 @@ def compose_frame(
     step: int,
     opts: RenderOptions = RenderOptions(),
     flip: Optional[torch.Tensor] = None,
+    include_mask: Optional[Union[np.ndarray, torch.Tensor]] = None,
 ):
     """World-space per-Gaussian attributes for one camera: a dict of
     means3d, scales, quats, opacity, shs, visible (all [C, ...]).
     flip: optional [C] bool, the train-time symmetry flip (actor rows
-    mirrored across the y axis of their box frame); train mode only."""
+    mirrored across the y axis of their box frame); train mode only.
+    include_mask: optional [M] bool, the models to render (a tensor on
+    the parameters' device is used as it is, numpy is copied there)."""
     if opts.use_semantic or opts.render_normal:
         raise NotImplementedError("semantics and normals are not ported yet")
     g = params.gaussians
@@ -160,6 +167,9 @@ def compose_frame(
 
     in_range = (frame >= table.start_frame[mid]) & (frame <= table.end_frame[mid])
     visible = aux.alive & in_range
+    if include_mask is not None:
+        inc = torch.as_tensor(include_mask, dtype=torch.bool, device=mid.device)
+        visible = visible & inc[mid]
 
     is_actor_row = (mid > 0) & (table.track_id[mid] >= 0)
     n_sky = 1 if table.sky_model >= 0 else 0
@@ -282,13 +292,14 @@ def screen_space(
     opts: RenderOptions = RenderOptions(),
     flip: Optional[torch.Tensor] = None,
     mean2d_offset: Optional[torch.Tensor] = None,
+    include_mask: Optional[Union[np.ndarray, torch.Tensor]] = None,
 ):
     """Per-Gaussian half of the render: compose + screen-space
     preprocess. Returns (screen, composed dict). mean2d_offset: optional
     [C, 2] zeros added to the screen means, whose gradient is the
     view-space mean gradient that densification collects."""
     cam = frame_inp.cam
-    composed = compose_frame(params, aux, table, pose_data, frame_inp, step, opts, flip)
+    composed = compose_frame(params, aux, table, pose_data, frame_inp, step, opts, flip, include_mask)
     max_deg = max(table.sh_degree_bkgd, table.sh_degree_obj)
     screen = preprocess_gaussians(
         means3d=composed["means3d"],
@@ -324,30 +335,29 @@ def render_frame(
     step: int,
     opts: RenderOptions = RenderOptions(),
     sky_table: Optional[torch.Tensor] = None,
-    generator: Optional[torch.Generator] = None,
     flip: Optional[torch.Tensor] = None,
     sky_jitter: Optional[torch.Tensor] = None,
     mean2d_offset: Optional[torch.Tensor] = None,
     absgrad_dummy: Optional[torch.Tensor] = None,
+    include_mask: Optional[Union[np.ndarray, torch.Tensor]] = None,
+    compose_sky: bool = True,
 ) -> Dict[str, torch.Tensor]:
     """Full render of one camera -> dict rgb/acc/depth/T/radii/...
 
     sky_table: optional precomputed build_sky_table(params.sky.cubemap),
     for serving (frozen parameters): skips the per-frame table build.
-    Train mode: `flip` ([C] bool) and `sky_jitter` ([H, W, 2]) are drawn
-    from `generator`, flip first, unless given; with neither, none.
+    Train mode: `flip` ([C] bool) and `sky_jitter` ([H, W, 2]), or
+    neither (no flip, no jitter).
     mean2d_offset / absgrad_dummy: optional [C, 2] zeros whose gradients
-    are the view-space mean gradient and its per-pixel-abs (AbsGS) sum."""
+    are the view-space mean gradient and its per-pixel-abs (AbsGS) sum.
+    include_mask: optional [M] bool, the models to render.
+    compose_sky: False leaves the sky out."""
     cam = frame_inp.cam
     train = opts.mode == "train"
-    if train and generator is not None:
-        if flip is None:
-            flip = draw_flip(table, aux.model_id, generator)
-        if sky_jitter is None and params.sky is not None:
-            sky_jitter = draw_sky_jitter(cam.H, cam.W, generator, params.sky.cubemap.device)
+    sky = params.sky if compose_sky else None
     with record_function("screen_space"):
         screen, _ = screen_space(
-            params, aux, table, pose_data, frame_inp, step, opts, flip, mean2d_offset
+            params, aux, table, pose_data, frame_inp, step, opts, flip, mean2d_offset, include_mask
         )
     dev = screen.depth.device
     bg = torch.full((3,), 1.0 if opts.white_background else 0.0, device=dev)
@@ -365,13 +375,13 @@ def render_frame(
         absgrad_dummy=absgrad_dummy,
     )
 
-    if params.sky is not None:
+    if sky is not None:
         ds = opts.sky_downsample if not train else 1
         if ds not in (1, 2):
             raise NotImplementedError(f"sky_downsample={ds} is not ported yet (1 or 2)")
         with record_function("sky"):
             sky_rgb = render_sky(
-                params.sky, cam, downsample=ds, table=sky_table,
+                sky, cam, downsample=ds, table=sky_table,
                 jitter=sky_jitter if train else None,
             )
             if ds == 2:
@@ -387,3 +397,34 @@ def render_frame(
     out["radii"] = screen.radius
     out["visibility"] = screen.radius > 0
     return out
+
+
+def include_mask_for(table: G.SceneTable, include=None, exclude=None) -> np.ndarray:
+    """[M] bool from lists of model names to include and to exclude."""
+    m = np.ones(table.num_models, bool)
+    if include is not None:
+        m[:] = False
+        for name in include:
+            if name in table.names:
+                m[table.names.index(name)] = True
+    if exclude is not None:
+        for name in exclude:
+            if name in table.names:
+                m[table.names.index(name)] = False
+    return m
+
+
+def render_object_mask(table: G.SceneTable) -> np.ndarray:
+    """The actors alone: neither the background nor the sky model."""
+    m = np.ones(table.num_models, bool)
+    m[0] = False
+    if table.sky_model >= 0:
+        m[table.sky_model] = False
+    return m
+
+
+def render_background_mask(table: G.SceneTable) -> np.ndarray:
+    """The background alone."""
+    m = np.zeros(table.num_models, bool)
+    m[0] = True
+    return m

@@ -142,7 +142,8 @@ def host_syncs(events: list) -> list:
 def trace_summary(trace_path: str, wall_ms: float, views: int, stages=STAGES) -> dict:
     """From a Chrome trace of `views` views (or steps) that took
     `wall_ms` on the host: the device's busy time (union of kernel, copy
-    and set intervals) and idle share, and per view and stage (profiler
+    and set intervals, over all the views, as wall_ms is) and idle
+    share, and per view and stage (profiler
     range name) the device span, the kernel time and count inside it,
     the kernel time and count launched (from any host thread) while the
     host range was open, the host time and the host's stream

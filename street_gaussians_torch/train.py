@@ -106,7 +106,11 @@ def bench_train_cell(device=None, seed: int = 0, sky_resolution: int = serve.SKY
 
 def run_step(cell: TrainCell, state, generator):
     """One train step plus the reference's densify / reset cadence after
-    it (iteration = the step's 1-based number)."""
+    it (iteration = the step's 1-based number): while iteration <
+    densify_until_iter, densify every densification_interval iterations
+    after densify_from_iter, reset the opacities every
+    opacity_reset_interval iterations, and once more at densify_from_iter
+    when data.white_background is set."""
     state, scalars = cell.step_fn(state, cell.frame, cell.gt, generator)
     o = cell.cfg.optim
     it = state.step
@@ -114,6 +118,8 @@ def run_step(cell: TrainCell, state, generator):
         if it > o.densify_from_iter and it % o.densification_interval == 0:
             state, _ = cell.densify_fn(state, generator, it > o.opacity_reset_interval)
         if it % o.opacity_reset_interval == 0:
+            state = cell.reset_fn(state)
+        if cell.cfg.data.white_background and it == o.densify_from_iter:
             state = cell.reset_fn(state)
     return state, scalars
 

@@ -10,11 +10,14 @@ densification statistics and applies the row-masked Adam update. The
 parameters are updated as new tensors under torch.no_grad(); the
 render's gradients come from the autograd Functions of the blend, the
 payload gather, the sky lookup and rows_from_models, whose backward
-passes are scatter-free and deterministic.
+passes are scatter-free and deterministic. With lambda_reg > 0 on a
+scene with actors, a step at or after densify_until_iter renders the
+actors alone a second time (the same flip, no sky) for the
+object-opacity loss; before that step the JAX step weighs that loss by
+0, and this one skips the render.
 
-Not ported yet (raise NotImplementedError): lambda_reg > 0 on a scene
-with actors (it renders the objects alone, which needs include masks),
-semantics and normals, the row-sharded and parallel steps.
+Not ported yet (raise NotImplementedError): semantics and normals, the
+row-sharded and parallel steps.
 """
 
 from __future__ import annotations
@@ -33,7 +36,10 @@ from street_gaussians_torch.models.renderer import (
     FrameInput,
     RenderOptions,
     SceneParams,
+    draw_flip,
+    draw_sky_jitter,
     render_frame,
+    render_object_mask,
 )
 from street_gaussians_torch.optim.adam import AdamState, adam_init, adam_update
 from street_gaussians_torch.optim.densify import (
@@ -206,11 +212,14 @@ def compute_losses(
     cam_image_id: int,
     aux: Optional[G.GaussianAux] = None,
     table: Optional[G.SceneTable] = None,
+    out_obj: Optional[Dict[str, torch.Tensor]] = None,
 ):
     """The reference loss stack: L1 + DSSIM, sky BCE on the accumulated
-    opacity, trimmed LiDAR depth, the correction regularizers, and the
-    dormant scale-flatten / box regularizers when their lambdas are set.
-    Returns (loss, {name: scalar})."""
+    opacity, with `out_obj` (the actors rendered alone) the
+    object-opacity loss against gt.obj_bound weighted by lambda_reg,
+    trimmed LiDAR depth, the correction regularizers, and
+    the dormant scale-flatten / box regularizers when their lambdas are
+    set. Returns (loss, {name: scalar})."""
     o = cfg.optim
     scalars = {}
     image = out["rgb"]
@@ -226,6 +235,16 @@ def compute_losses(
         sky_loss = sky_loss * gt.sky_scale
         scalars["sky_loss"] = sky_loss
         loss = loss + o.lambda_sky * sky_loss
+    if out_obj is not None:
+        # entropy inside the projected boxes, transparency outside
+        acc_obj = L.jnp_clip(out_obj["acc"], 1e-6, 1.0 - 1e-6)[..., None]
+        obj_acc_loss = torch.where(
+            gt.obj_bound,
+            -(acc_obj * torch.log(acc_obj) + (1 - acc_obj) * torch.log(1 - acc_obj)),
+            -torch.log(1.0 - acc_obj),
+        ).mean()
+        scalars["obj_acc_loss"] = obj_acc_loss
+        loss = loss + o.lambda_reg * obj_acc_loss
     if o.lambda_depth_lidar > 0:
         depth_mask = (gt.lidar_depth > 0.0) & mask[..., 0]
         # the reference divides by acc + 1e-10; the clamp bounds the
@@ -266,13 +285,13 @@ def make_train_step(
     `generator` (flip first, then the sky jitter) unless `draws` gives
     them; with neither, the step draws none (no flip, no jitter)."""
     o = cfg.optim
-    if o.lambda_reg > 0 and table.num_models > 1:
-        raise NotImplementedError(
-            "lambda_reg > 0 renders the objects alone, which needs include masks (not ported yet)"
-        )
     if opts.use_semantic or opts.render_normal:
         raise NotImplementedError("semantics and normals are not ported yet")
     C = table.capacity
+    obj_mask = None
+    if o.lambda_reg > 0 and table.num_models > 1:
+        # on the card once, so that the object render copies nothing
+        obj_mask = torch.as_tensor(render_object_mask(table), device=table.start_frame.device)
 
     def loss_and_grads(state: TrainState, frame: FrameInput, gt: GroundTruth,
                        generator: Optional[torch.Generator] = None, draws: Optional[Draws] = None):
@@ -287,16 +306,31 @@ def make_train_step(
         params = unflatten_params(leaves, state.params)
         m2d_off = torch.zeros((C, 2), device=dev, requires_grad=True)
         abs_dummy = torch.zeros((C, 2), device=dev, requires_grad=True)
+        if draws is None:
+            # drawn here, flip first, so that the object render reuses the flip
+            flip = jitter = None
+            if opts.mode == "train" and generator is not None:
+                flip = draw_flip(table, state.aux.model_id, generator)
+                if params.sky is not None:
+                    jitter = draw_sky_jitter(frame.cam.H, frame.cam.W, generator, dev)
+            draws = Draws(flip, jitter)
         out = render_frame(
             params, state.aux, table, pose_data, frame, state.step, opts=opts,
-            generator=None if draws is not None else generator,
-            flip=None if draws is None else draws.flip,
-            sky_jitter=None if draws is None else draws.sky_jitter,
+            flip=draws.flip, sky_jitter=draws.sky_jitter,
             mean2d_offset=m2d_off, absgrad_dummy=abs_dummy,
         )
+        out_obj = None
+        if obj_mask is not None and state.step >= o.densify_until_iter:
+            # the actors alone: the same flip, no sky, and no view-space
+            # offsets, so that densification sees only the full render
+            with record_function("object_render"):
+                out_obj = render_frame(
+                    params, state.aux, table, pose_data, frame, state.step, opts=opts,
+                    flip=draws.flip, include_mask=obj_mask, compose_sky=False,
+                )
         with record_function("losses"):
             loss, scalars = compute_losses(
-                out, gt, params, cfg, frame.cam.image_id, aux=state.aux, table=table
+                out, gt, params, cfg, frame.cam.image_id, aux=state.aux, table=table, out_obj=out_obj
             )
         wrt = [*leaves.values(), m2d_off, abs_dummy]
         with record_function("backward"):

@@ -22,6 +22,7 @@ from chip_smoke import (
     random_blend_case,
     random_expand_case,
     random_table_case,
+    small_step_check,
 )
 from street_gaussians_torch.kernels import _build
 from street_gaussians_torch.ops import fill, rasterize, segsum, tile_raster, tile_raster2
@@ -338,6 +339,16 @@ def test_probe_kernels_match_plain(cuda_device):
     bound = 1e-5 * probe_kernel.probe_floor_plain(case[0].abs(), *case[1:])
     assert ((floor - probe_kernel.probe_floor_plain(*case)).abs() <= bound + 1e-30).all()
     compare_blend(mma, tile_raster2.tile_blend_plain(*case), case[3], "probe_blend_mma kernel")
+
+
+@pytest.mark.cuda
+def test_train_steps_with_object_loss_match_cpu(cuda_device):
+    """Two train steps with lambda_reg = 0.1 on a small scene with actors,
+    the second at densify_until_iter (the actors rendered alone for the
+    object-opacity loss), on the card and on the CPU with the same draws:
+    gradients, parameters, moments and statistics within the CPU tests'
+    tolerances (chip_smoke.grads_close and params_close)."""
+    small_step_check(cuda_device, lambda_reg=0.1)
 
 
 def test_every_source_is_built_by_name():
