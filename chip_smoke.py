@@ -61,9 +61,27 @@
    the object render's cost; a profile of two steps on each side gives
    their device time, kernels and host syncs (`object_render` range);
    then two small train steps across the gate, card against CPU;
-9. prints one `kernels` JSON line with all eight kernels (with the
-   loaded sequence's launches before and after the gate);
-10. prints {"ok": true, "device": {...}} as the last line.
+9. runs the port's three CLIs on that sequence, in-process: `train
+   --config configs/example/waymo_train_002.yaml` (the recipe read by the
+   port's YAML reader) for 300 iterations, in which the overflow watchdog
+   grows the capacity, densify runs at 100 and 150 and the object loss
+   starts at 160; a resume to 320; `render` (render_sets from the
+   checkpoint) and `metrics`. The log must hold a finite record every 10
+   iterations and the densify records, each growth must follow the
+   watchdog's rule, the checkpoint must reload and re-save bit for bit
+   with the run's param_checksum, the PLY must hold the alive rows, the
+   four main-path kernels must launch in training (2.1 and 2.3 in
+   render_sets) and agree with their plain versions on the step of
+   iteration 300, render_sets must write 30 PNGs, the metrics must be
+   finite and training must have raised the eval views' PSNR; then 20
+   iterations of the runner on a small sequence, card against CPU.
+   `[runner]`, `[render]` and `[metrics]` lines: seconds per stage,
+   ms/step, the ladder, ms/view, frames per second, peak memory and the
+   ground-truth cache's bytes;
+10. prints one `kernels` JSON line with all eight kernels (with the
+   loaded sequence's launches before and after the gate, and step 9's in
+   training and in render_sets);
+11. prints {"ok": true, "device": {...}} as the last line.
 
 Any failure raises (exit code != 0). Without CUDA, or without the rest
 of the repository beside it, it fails before printing a result.
@@ -71,10 +89,15 @@ of the repository beside it, it fails before printing a result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -579,10 +602,17 @@ def main() -> int:
     # ---- 7. the dense-table layout and the probe ----
     table_kernels = table_phase(dev, screen, H, W, b_args, b_ref, b_plain, bound(b_bytes, b_ops))
 
-    # ---- 8. a Waymo-format sequence from disk, trained across the gate ----
+    # ---- 8. a Waymo-format sequence from disk, trained across the gate;
+    # 9. the same sequence through the three CLIs ----
     del screen, b_args, b_ref
     torch.cuda.empty_cache()
-    seq = waymo_phase(dev)
+    tmp = tempfile.mkdtemp(prefix="sg_waymo_")
+    try:
+        seq = waymo_phase(dev, tmp)
+        torch.cuda.empty_cache()
+        run = runner_phase(dev, os.path.join(tmp, "seq"), tmp, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     kernels = []
     train = {"path": f"{TRAIN_STEPS} train steps"}
@@ -601,7 +631,9 @@ def main() -> int:
         if "train" in extra["path"]:
             extra = {**extra, "launches_per_step": n / TRAIN_STEPS}
         if name in seq["errors"]:
-            err = max(err, seq["errors"][name])
+            err = max(err, seq["errors"][name], run["errors"][name])
+        if name in run["launches"]:
+            extra = {**extra, "runner_launches": run["launches"][name]}
         if name in seq["launches"]:
             extra = {**extra, "waymo_launches": seq["launches"][name],
                      "waymo_launches_per_step": {k: v / TRAIN_STEPS for k, v in seq["launches"][name].items()}}
@@ -615,6 +647,7 @@ def main() -> int:
         f"tile_blend bytes {b_bytes}, f32 ops {b_ops}")
 
     log(f"[waymo] summary: {json.dumps({k: v for k, v in seq.items() if k not in ('launches', 'errors')})}")
+    log(f"[runner] summary: {json.dumps({k: v for k, v in run.items() if k not in ('launches', 'errors')})}")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -768,18 +801,17 @@ def merge_config(cfg, overrides: dict):
     return cfg
 
 
-def waymo_phase(dev) -> dict:
-    """Step 8: write a Waymo-format sequence at Waymo's resolution, load it
-    with the port's loaders, and train it with the Waymo recipe (the
-    object-opacity loss on) on both sides of densify_until_iter; then two
-    small train steps across that gate, card against CPU. Returns the
-    main-path kernels' launches before and after the gate, their largest
-    errors on the gate step's inputs, and the times."""
+def waymo_phase(dev, tmp: str) -> dict:
+    """Step 8: write a Waymo-format sequence at Waymo's resolution under
+    tmp/seq (step 9 reads it again), load it with the port's loaders, and
+    train it with the Waymo recipe (the object-opacity loss on) on both
+    sides of densify_until_iter; then two small train steps across that
+    gate, card against CPU. Returns the main-path kernels' launches before
+    and after the gate, their largest errors on the gate step's inputs,
+    the times and the sequence's root."""
     import copy
     import dataclasses
     import os
-    import shutil
-    import tempfile
 
     from street_gaussians_torch import native, serve
     from street_gaussians_torch.config import default_config
@@ -793,229 +825,225 @@ def waymo_phase(dev) -> dict:
 
     kernels = (fill.expand_runs, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd,
                segsum.segment_rowsum)
-    tmp = tempfile.mkdtemp(prefix="sg_waymo_")
+    root = os.path.join(tmp, "seq")
+    # ---- 8a. write ----
+    t0 = time.perf_counter()
+    write_synthetic_waymo(root, num_frames=SEQ_FRAMES, cameras=(0, 1, 2), image_size=SEQ_IMAGE,
+                          points_per_frame=SEQ_POINTS, seed=0, actor_in_view=True)
+    t_write = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+    log(f"[waymo] wrote {SEQ_FRAMES} frames x 5 sensors at {SEQ_IMAGE[1]}x{SEQ_IMAGE[0]}, "
+        f"{SEQ_POINTS} LiDAR points a frame: {nbytes / 2**20:.1f} MiB in {t_write:.2f} s")
+
+    # ---- 8b. load, once, its stages timed where the loader calls them ----
+    cfg = merge_config(default_config(), copy.deepcopy(WAYMO_RECIPE))
+    cfg.source_path, cfg.model_path, cfg.mode = root, os.path.join(tmp, "out"), "train"
+    lib = native.load_native() is not None
+    stages = {"parse": CallRecorder(waymo.generate_dataparser_outputs, [waymo]),
+              "clouds": CallRecorder(waymo._build_pointclouds, [waymo]),
+              "png": CallRecorder(waymo.imread, [waymo])}
+    t0 = time.perf_counter()
+    np.random.seed(0)  # the actor's grid colours
     try:
-        root = os.path.join(tmp, "seq")
-        # ---- 8a. write ----
-        t0 = time.perf_counter()
-        write_synthetic_waymo(root, num_frames=SEQ_FRAMES, cameras=(0, 1, 2), image_size=SEQ_IMAGE,
-                              points_per_frame=SEQ_POINTS, seed=0, actor_in_view=True)
-        t_write = time.perf_counter() - t0
-        nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
-        log(f"[waymo] wrote {SEQ_FRAMES} frames x 5 sensors at {SEQ_IMAGE[1]}x{SEQ_IMAGE[0]}, "
-            f"{SEQ_POINTS} LiDAR points a frame: {nbytes / 2**20:.1f} MiB in {t_write:.2f} s")
-
-        # ---- 8b. load, once, its stages timed where the loader calls them ----
-        cfg = merge_config(default_config(), copy.deepcopy(WAYMO_RECIPE))
-        cfg.source_path, cfg.model_path, cfg.mode = root, os.path.join(tmp, "out"), "train"
-        lib = native.load_native() is not None
-        stages = {"parse": CallRecorder(waymo.generate_dataparser_outputs, [waymo]),
-                  "clouds": CallRecorder(waymo._build_pointclouds, [waymo]),
-                  "png": CallRecorder(waymo.imread, [waymo])}
-        t0 = time.perf_counter()
-        np.random.seed(0)  # the actor's grid colours
-        try:
-            scene = load_waymo_scene(cfg, device=dev)
-            torch.cuda.synchronize()
-        finally:
-            for rec in stages.values():
-                rec.restore()
-        t_load = time.perf_counter() - t0
-        parsed = stages["parse"].result
-        clouds = parsed.points_xyz_dict
-        t_parse, t_clouds, t_png = (stages[k].seconds for k in ("parse", "clouds", "png"))
-        views = scene.train_views
-        H, W = views[0].H, views[0].W
-        log(f"[waymo] loaded in {t_load:.2f} s: parsing and obj_bound masks {t_parse - t_clouds:.2f} s, point "
-            f"clouds {t_clouds:.2f} s, of which {len(stages['png'].calls)} PNG decodes (sizes and point colours) "
-            f"{t_png:.2f} s; packing and views {t_load - t_parse:.2f} s; native library "
-            f"{'loaded' if lib else 'not loaded (scipy and numpy fallback)'}")
-        log(f"[waymo] {len(views)} views at {W}x{H}, {scene.table.num_actors} actor(s) "
-            f"{scene.table.names[1:]}, LiDAR {clouds['lidar'].shape[0]} background points after the voxel and "
-            f"outlier filters, actor clouds {[clouds[k].shape[0] for k in clouds if k.startswith('obj_')]} points "
-            f"(grid init below 2,000), packed rows {scene.table.capacity}, "
-            f"obj_bound pixels {[int(b.sum()) for b in parsed.obj_bounds[:3]]} in the first frame's views")
-        if (W, H) != _resize_shape(SEQ_IMAGE[1], SEQ_IMAGE[0])[:2] or len(views) != 3 * SEQ_FRAMES \
-                or scene.table.num_actors < 1:
-            raise AssertionError(f"loaded {len(views)} views at {W}x{H}, {scene.table.num_actors} actors")
-        t0 = time.perf_counter()
-        gts = [load_ground_truth(v, device=dev) for v in views]
+        scene = load_waymo_scene(cfg, device=dev)
         torch.cuda.synchronize()
-        log(f"[waymo] ground truth of {len(gts)} views (decode, area resize to {W}x{H}, guidance) on the card "
-            f"in {time.perf_counter() - t0:.2f} s")
-
-        # ---- 8c. train across the gate ----
-        gate = TRAIN_WARMUP + TRAIN_STEPS
-        cfg.optim.densify_until_iter = gate
-        params = build_initial_params(cfg, scene, device=dev)
-        opts = render_opts_from_cfg(cfg, "train")
-        step_fn = make_train_step(cfg, scene.table, scene.pose_data, opts)
-        state = init_train_state(params, scene.aux_init)
-        gen = torch.Generator(device=dev).manual_seed(0)
-        order = np.random.default_rng(0).permutation(len(views))
-        view_of = lambda s: order[s % len(views)]  # noqa: E731
-
-        def step(st, **kw):
-            i = view_of(st.step)
-            return step_fn(st, views[i].frame_input, gts[i], gen, **kw)
-
-        for i in range(TRAIN_WARMUP):
-            t0 = time.perf_counter()
-            new, sc = step(state)
-            while int(sc["overflow"]) != 0:
-                opts = dataclasses.replace(opts, instance_capacity=2 * opts.instance_capacity)
-                log(f"[waymo] warm-up step {i} dropped {int(sc['overflow'])} instances: instance capacity raised "
-                    f"to {opts.instance_capacity}")
-                step_fn = make_train_step(cfg, scene.table, scene.pose_data, opts)
-                new, sc = step(state)
-            state = new
-            torch.cuda.synchronize()
-            log(f"[waymo] warm-up step {i}: {1e3 * (time.perf_counter() - t0):.1f} ms wall, loss "
-                f"{float(sc['loss']):.6f}, {int(sc['num_alive'])} alive")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        runs = {}
-        for side in ("before", "after"):
-            for k in kernels:
-                k.launches = 0
-            ms, records = [], []
-            for _ in range(TRAIN_STEPS):
-                if side == "after" and not records:
-                    at_gate = state
-                if side == "before" and len(records) == TRAIN_STEPS - 2:
-                    before_gate = state
-                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                e0.record()
-                state, sc = step(state)
-                e1.record()
-                torch.cuda.synchronize()
-                ms.append(e0.elapsed_time(e1))
-                records.append(sc)
-            runs[side] = dict(ms=ms, records=records, launches={k.__name__: k.launches for k in kernels})
-        peak = torch.cuda.max_memory_allocated(dev)
-        for side, run in runs.items():
-            for i, sc in enumerate(run["records"]):
-                loss = float(sc["loss"])
-                if not math.isfinite(loss) or int(sc["overflow"]) != 0:
-                    raise AssertionError(f"waymo step {side} the gate {i}: loss {loss}, overflow {int(sc['overflow'])}")
-                if (side == "after") != ("obj_acc_loss" in sc):
-                    raise AssertionError(f"waymo step {side} the gate: obj_acc_loss {'missing' if side == 'after' else 'present'}")
-                if side == "after" and not float(sc["obj_acc_loss"]) > 0:
-                    raise AssertionError(f"waymo step after the gate: obj_acc_loss {float(sc['obj_acc_loss'])}")
-            ms = run["ms"]
-            log(f"[waymo] {TRAIN_STEPS} steps {side} the gate (densify_until_iter {gate}): mean "
-                f"{sum(ms) / len(ms):.3f} ms/step (min {min(ms):.3f}, max {max(ms):.3f}); losses "
-                f"{[round(float(sc['loss']), 5) for sc in run['records']]}; obj_acc_loss "
-                f"{[round(float(sc['obj_acc_loss']), 5) for sc in run['records'] if 'obj_acc_loss' in sc]}; "
-                f"launches {run['launches']}")
-        for v in flatten_params(state.params).values():
-            if not torch.isfinite(v).all():
-                raise AssertionError("waymo: non-finite parameter after training")
-        before, after = runs["before"]["launches"], runs["after"]["launches"]
-        if (before["tile_blend_instances"] != TRAIN_STEPS or before["tile_blend_bwd"] != TRAIN_STEPS
-                or after["tile_blend_instances"] != 2 * TRAIN_STEPS or after["tile_blend_bwd"] != 2 * TRAIN_STEPS
-                or before["segment_rowsum"] != 2 * TRAIN_STEPS or after["segment_rowsum"] != 3 * TRAIN_STEPS
-                or before["expand_runs"] < TRAIN_STEPS or after["expand_runs"] != 2 * before["expand_runs"]):
-            raise AssertionError(f"waymo launches before the gate {before}, after {after}")
-        log(f"[waymo] peak memory {peak / 2**30:.3f} GiB over the {2 * TRAIN_STEPS} timed steps; the blend "
-            f"kernels launch twice a step after the gate")
-
-        # ---- 8d. one step twice from the same state, at the gate ----
-        C = scene.table.capacity
-        draws = Draws(torch.rand(C, generator=gen, device=dev) < 0.5,
-                      torch.rand((H, W, 2), generator=gen, device=dev) - 0.5)
-        # the first run's kernel inputs, full render and object render, for 8e
-        recs = {"expand_runs": CallRecorder(fill.expand_runs, [fill]),
-                "forward": CallRecorder(tile_raster2._forward, [tile_raster2]),
-                "tile_blend_bwd": CallRecorder(tile_raster2.tile_blend_bwd, [tile_raster2]),
-                "segment_rowsum": CallRecorder(segsum.segment_rowsum, [rasterize, sky_cubemap])}
-        try:
-            s1, sc1 = step(at_gate, draws=draws)
-        finally:
-            for rec in recs.values():
-                rec.restore()
-        s2, _ = step(at_gate, draws=draws)
-        for name, a, b in [
-            *((f"params {k}", v, flatten_params(s2.params)[k]) for k, v in flatten_params(s1.params).items()),
-            *((f"adam {m} {k}", v, getattr(s2.adam, m)[k]) for m in ("mu", "nu", "count")
-              for k, v in getattr(s1.adam, m).items()),
-            ("aux max_radii", s1.aux.max_radii, s2.aux.max_radii),
-        ]:
-            if not torch.equal(a, b):
-                raise AssertionError(f"waymo step at the gate not bit-reproducible: {name}")
-        log(f"[check] one waymo step at the gate twice from the same state: bit-equal (obj_acc_loss "
-            f"{float(sc1['obj_acc_loss']):.6f})")
-        del s1, s2
-
-        # ---- 8e. the kernels on the gate step's own inputs ----
-        errors = gate_step_checks(recs, C, f"loaded view {W}x{H}")
-        del recs
-        torch.cuda.empty_cache()
-
-        # ---- 8f. the object render's cost, unprofiled: the same states,
-        # views and draws through the step with the object loss and
-        # through one without it (lambda_reg 0), in turns ----
-        cfg_no_obj = copy.deepcopy(cfg)
-        cfg_no_obj.optim.lambda_reg = 0.0
-        fns = {"with": step_fn, "without": make_train_step(cfg_no_obj, scene.table, scene.pose_data, opts)}
-        paired = {"with": [], "without": []}
-        for j in range(TRAIN_STEPS):
-            i = view_of(at_gate.step + j)
-            for which in (("with", "without") if j % 2 == 0 else ("without", "with")):
-                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                e0.record()
-                fns[which](at_gate, views[i].frame_input, gts[i], draws=draws)
-                e1.record()
-                torch.cuda.synchronize()
-                paired[which].append(e0.elapsed_time(e1))
-        mean = {k: sum(v) / len(v) for k, v in paired.items()}
-        log(f"[waymo] the same {TRAIN_STEPS} views at the gate, in turns: with the object render "
-            f"{mean['with']:.3f} ms/step, without {mean['without']:.3f} (lambda_reg 0): the object render "
-            f"adds {mean['with'] - mean['without']:.3f} ms/step; across the gate the means differ by "
-            f"{sum(runs['after']['ms']) / TRAIN_STEPS - sum(runs['before']['ms']) / TRAIN_STEPS:.3f} ms/step")
-        del fns
-
-        # ---- 8g. profiles of two steps on each side of the gate ----
-        from torch.profiler import ProfilerActivity, profile
-
-        from street_gaussians_torch.script import trace_stats
-
-        prof_steps = 2
-        busy = {}
-        for side, st in (("before", before_gate), ("after", at_gate)):
-            trace = os.path.join(tmp, f"{side}.json")
-            torch.cuda.synchronize()
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(prof_steps + 1)]
-            t0 = time.perf_counter()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                ev[0].record()
-                for k in range(prof_steps):
-                    st, _ = step(st)
-                    ev[k + 1].record()
-                torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-            prof.export_chrome_trace(trace)
-            summ = serve.trace_summary(trace, wall, prof_steps, ("object_render", "screen_space", "backward"))
-            summ["events_ms"] = [ev[k].elapsed_time(ev[k + 1]) for k in range(prof_steps)]
-            summ["stats"] = trace_stats.trace_stats(trace, prof_steps)  # busy ms, kernels, syncs a step
-            with open(trace) as f:
-                launched = [e for e in serve.device_events(json.load(f)["traceEvents"]) if e["cat"] == "kernel"]
-            summ["kernel_busy_ms"] = serve.busy_ms(launched) / prof_steps
-            busy[side] = summ
-            obj, stats = summ["per_view"]["object_render"], summ["stats"]
-            log(f"[waymo] profiled {prof_steps} steps {side} the gate: wall {wall / prof_steps:.3f} ms/step, CUDA "
-                f"events {[round(x, 3) for x in summ['events_ms']]} ms; device busy {stats['busy_ms']:.3f} ms/step "
-                f"(kernels alone {summ['kernel_busy_ms']:.3f}), idle share {summ['idle_share']:.3f}; "
-                f"{stats['kernels']:.1f} kernels and {stats['host_syncs']:.1f} host syncs a step; object_render range: "
-                f"{obj['launched_kernel_ms']:.3f} ms of kernels, {obj['launched_kernels']:.0f} kernels, "
-                f"{obj['host_syncs']:.1f} host syncs, host {obj['host_ms']:.3f} ms; backward launched "
-                f"{summ['per_view']['backward']['launched_kernel_ms']:.3f} ms")
-        if not busy["after"]["per_view"]["object_render"]["launched_kernels"] > 0:
-            raise AssertionError("waymo: no kernel in the object_render range after the gate")
-        del state, at_gate, before_gate, params, scene, gts
-        torch.cuda.empty_cache()
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        for rec in stages.values():
+            rec.restore()
+    t_load = time.perf_counter() - t0
+    parsed = stages["parse"].result
+    clouds = parsed.points_xyz_dict
+    t_parse, t_clouds, t_png = (stages[k].seconds for k in ("parse", "clouds", "png"))
+    views = scene.train_views
+    H, W = views[0].H, views[0].W
+    log(f"[waymo] loaded in {t_load:.2f} s: parsing and obj_bound masks {t_parse - t_clouds:.2f} s, point "
+        f"clouds {t_clouds:.2f} s, of which {len(stages['png'].calls)} PNG decodes (sizes and point colours) "
+        f"{t_png:.2f} s; packing and views {t_load - t_parse:.2f} s; native library "
+        f"{'loaded' if lib else 'not loaded (scipy and numpy fallback)'}")
+    log(f"[waymo] {len(views)} views at {W}x{H}, {scene.table.num_actors} actor(s) "
+        f"{scene.table.names[1:]}, LiDAR {clouds['lidar'].shape[0]} background points after the voxel and "
+        f"outlier filters, actor clouds {[clouds[k].shape[0] for k in clouds if k.startswith('obj_')]} points "
+        f"(grid init below 2,000), packed rows {scene.table.capacity}, "
+        f"obj_bound pixels {[int(b.sum()) for b in parsed.obj_bounds[:3]]} in the first frame's views")
+    if (W, H) != _resize_shape(SEQ_IMAGE[1], SEQ_IMAGE[0])[:2] or len(views) != 3 * SEQ_FRAMES \
+            or scene.table.num_actors < 1:
+        raise AssertionError(f"loaded {len(views)} views at {W}x{H}, {scene.table.num_actors} actors")
+    t0 = time.perf_counter()
+    gts = [load_ground_truth(v, device=dev) for v in views]
+    torch.cuda.synchronize()
+    log(f"[waymo] ground truth of {len(gts)} views (decode, area resize to {W}x{H}, guidance) on the card "
+        f"in {time.perf_counter() - t0:.2f} s")
+
+    # ---- 8c. train across the gate ----
+    gate = TRAIN_WARMUP + TRAIN_STEPS
+    cfg.optim.densify_until_iter = gate
+    params = build_initial_params(cfg, scene, device=dev)
+    opts = render_opts_from_cfg(cfg, "train")
+    step_fn = make_train_step(cfg, scene.table, scene.pose_data, opts)
+    state = init_train_state(params, scene.aux_init)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    order = np.random.default_rng(0).permutation(len(views))
+    view_of = lambda s: order[s % len(views)]  # noqa: E731
+
+    def step(st, **kw):
+        i = view_of(st.step)
+        return step_fn(st, views[i].frame_input, gts[i], gen, **kw)
+
+    for i in range(TRAIN_WARMUP):
+        t0 = time.perf_counter()
+        new, sc = step(state)
+        while int(sc["overflow"]) != 0:
+            opts = dataclasses.replace(opts, instance_capacity=2 * opts.instance_capacity)
+            log(f"[waymo] warm-up step {i} dropped {int(sc['overflow'])} instances: instance capacity raised "
+                f"to {opts.instance_capacity}")
+            step_fn = make_train_step(cfg, scene.table, scene.pose_data, opts)
+            new, sc = step(state)
+        state = new
+        torch.cuda.synchronize()
+        log(f"[waymo] warm-up step {i}: {1e3 * (time.perf_counter() - t0):.1f} ms wall, loss "
+            f"{float(sc['loss']):.6f}, {int(sc['num_alive'])} alive")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = {}
+    for side in ("before", "after"):
+        for k in kernels:
+            k.launches = 0
+        ms, records = [], []
+        for _ in range(TRAIN_STEPS):
+            if side == "after" and not records:
+                at_gate = state
+            if side == "before" and len(records) == TRAIN_STEPS - 2:
+                before_gate = state
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, sc = step(state)
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            records.append(sc)
+        runs[side] = dict(ms=ms, records=records, launches={k.__name__: k.launches for k in kernels})
+    peak = torch.cuda.max_memory_allocated(dev)
+    for side, run in runs.items():
+        for i, sc in enumerate(run["records"]):
+            loss = float(sc["loss"])
+            if not math.isfinite(loss) or int(sc["overflow"]) != 0:
+                raise AssertionError(f"waymo step {side} the gate {i}: loss {loss}, overflow {int(sc['overflow'])}")
+            if (side == "after") != ("obj_acc_loss" in sc):
+                raise AssertionError(f"waymo step {side} the gate: obj_acc_loss {'missing' if side == 'after' else 'present'}")
+            if side == "after" and not float(sc["obj_acc_loss"]) > 0:
+                raise AssertionError(f"waymo step after the gate: obj_acc_loss {float(sc['obj_acc_loss'])}")
+        ms = run["ms"]
+        log(f"[waymo] {TRAIN_STEPS} steps {side} the gate (densify_until_iter {gate}): mean "
+            f"{sum(ms) / len(ms):.3f} ms/step (min {min(ms):.3f}, max {max(ms):.3f}); losses "
+            f"{[round(float(sc['loss']), 5) for sc in run['records']]}; obj_acc_loss "
+            f"{[round(float(sc['obj_acc_loss']), 5) for sc in run['records'] if 'obj_acc_loss' in sc]}; "
+            f"launches {run['launches']}")
+    for v in flatten_params(state.params).values():
+        if not torch.isfinite(v).all():
+            raise AssertionError("waymo: non-finite parameter after training")
+    before, after = runs["before"]["launches"], runs["after"]["launches"]
+    if (before["tile_blend_instances"] != TRAIN_STEPS or before["tile_blend_bwd"] != TRAIN_STEPS
+            or after["tile_blend_instances"] != 2 * TRAIN_STEPS or after["tile_blend_bwd"] != 2 * TRAIN_STEPS
+            or before["segment_rowsum"] != 2 * TRAIN_STEPS or after["segment_rowsum"] != 3 * TRAIN_STEPS
+            or before["expand_runs"] < TRAIN_STEPS or after["expand_runs"] != 2 * before["expand_runs"]):
+        raise AssertionError(f"waymo launches before the gate {before}, after {after}")
+    log(f"[waymo] peak memory {peak / 2**30:.3f} GiB over the {2 * TRAIN_STEPS} timed steps; the blend "
+        f"kernels launch twice a step after the gate")
+
+    # ---- 8d. one step twice from the same state, at the gate ----
+    C = scene.table.capacity
+    draws = Draws(torch.rand(C, generator=gen, device=dev) < 0.5,
+                  torch.rand((H, W, 2), generator=gen, device=dev) - 0.5)
+    # the first run's kernel inputs, full render and object render, for 8e
+    recs = {"expand_runs": CallRecorder(fill.expand_runs, [fill]),
+            "forward": CallRecorder(tile_raster2._forward, [tile_raster2]),
+            "tile_blend_bwd": CallRecorder(tile_raster2.tile_blend_bwd, [tile_raster2]),
+            "segment_rowsum": CallRecorder(segsum.segment_rowsum, [rasterize, sky_cubemap])}
+    try:
+        s1, sc1 = step(at_gate, draws=draws)
+    finally:
+        for rec in recs.values():
+            rec.restore()
+    s2, _ = step(at_gate, draws=draws)
+    for name, a, b in [
+        *((f"params {k}", v, flatten_params(s2.params)[k]) for k, v in flatten_params(s1.params).items()),
+        *((f"adam {m} {k}", v, getattr(s2.adam, m)[k]) for m in ("mu", "nu", "count")
+          for k, v in getattr(s1.adam, m).items()),
+        ("aux max_radii", s1.aux.max_radii, s2.aux.max_radii),
+    ]:
+        if not torch.equal(a, b):
+            raise AssertionError(f"waymo step at the gate not bit-reproducible: {name}")
+    log(f"[check] one waymo step at the gate twice from the same state: bit-equal (obj_acc_loss "
+        f"{float(sc1['obj_acc_loss']):.6f})")
+    del s1, s2
+
+    # ---- 8e. the kernels on the gate step's own inputs ----
+    errors = gate_step_checks(recs, C, f"loaded view {W}x{H}")
+    del recs
+    torch.cuda.empty_cache()
+
+    # ---- 8f. the object render's cost, unprofiled: the same states,
+    # views and draws through the step with the object loss and
+    # through one without it (lambda_reg 0), in turns ----
+    cfg_no_obj = copy.deepcopy(cfg)
+    cfg_no_obj.optim.lambda_reg = 0.0
+    fns = {"with": step_fn, "without": make_train_step(cfg_no_obj, scene.table, scene.pose_data, opts)}
+    paired = {"with": [], "without": []}
+    for j in range(TRAIN_STEPS):
+        i = view_of(at_gate.step + j)
+        for which in (("with", "without") if j % 2 == 0 else ("without", "with")):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fns[which](at_gate, views[i].frame_input, gts[i], draws=draws)
+            e1.record()
+            torch.cuda.synchronize()
+            paired[which].append(e0.elapsed_time(e1))
+    mean = {k: sum(v) / len(v) for k, v in paired.items()}
+    log(f"[waymo] the same {TRAIN_STEPS} views at the gate, in turns: with the object render "
+        f"{mean['with']:.3f} ms/step, without {mean['without']:.3f} (lambda_reg 0): the object render "
+        f"adds {mean['with'] - mean['without']:.3f} ms/step; across the gate the means differ by "
+        f"{sum(runs['after']['ms']) / TRAIN_STEPS - sum(runs['before']['ms']) / TRAIN_STEPS:.3f} ms/step")
+    del fns
+
+    # ---- 8g. profiles of two steps on each side of the gate ----
+    from torch.profiler import ProfilerActivity, profile
+
+    from street_gaussians_torch.script import trace_stats
+
+    prof_steps = 2
+    busy = {}
+    for side, st in (("before", before_gate), ("after", at_gate)):
+        trace = os.path.join(tmp, f"{side}.json")
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(prof_steps + 1)]
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ev[0].record()
+            for k in range(prof_steps):
+                st, _ = step(st)
+                ev[k + 1].record()
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        prof.export_chrome_trace(trace)
+        summ = serve.trace_summary(trace, wall, prof_steps, ("object_render", "screen_space", "backward"))
+        summ["events_ms"] = [ev[k].elapsed_time(ev[k + 1]) for k in range(prof_steps)]
+        summ["stats"] = trace_stats.trace_stats(trace, prof_steps)  # busy ms, kernels, syncs a step
+        with open(trace) as f:
+            launched = [e for e in serve.device_events(json.load(f)["traceEvents"]) if e["cat"] == "kernel"]
+        summ["kernel_busy_ms"] = serve.busy_ms(launched) / prof_steps
+        busy[side] = summ
+        obj, stats = summ["per_view"]["object_render"], summ["stats"]
+        log(f"[waymo] profiled {prof_steps} steps {side} the gate: wall {wall / prof_steps:.3f} ms/step, CUDA "
+            f"events {[round(x, 3) for x in summ['events_ms']]} ms; device busy {stats['busy_ms']:.3f} ms/step "
+            f"(kernels alone {summ['kernel_busy_ms']:.3f}), idle share {summ['idle_share']:.3f}; "
+            f"{stats['kernels']:.1f} kernels and {stats['host_syncs']:.1f} host syncs a step; object_render range: "
+            f"{obj['launched_kernel_ms']:.3f} ms of kernels, {obj['launched_kernels']:.0f} kernels, "
+            f"{obj['host_syncs']:.1f} host syncs, host {obj['host_ms']:.3f} ms; backward launched "
+            f"{summ['per_view']['backward']['launched_kernel_ms']:.3f} ms")
+    if not busy["after"]["per_view"]["object_render"]["launched_kernels"] > 0:
+        raise AssertionError("waymo: no kernel in the object_render range after the gate")
+    del state, at_gate, before_gate, params, scene, gts
+    torch.cuda.empty_cache()
 
     # ---- 8h. card against CPU across the gate ----
     small_step_check(dev, lambda_reg=0.1)
@@ -1032,6 +1060,328 @@ def waymo_phase(dev) -> dict:
                      for side, b in busy.items()},
         "errors": errors,
     }
+
+
+RUN_ITERS = 300
+RESUME_ITERS = 320
+RUN_GATE = 160  # densify_until_iter: the object-opacity loss from here on
+
+
+def runner_phase(dev, root: str, tmp: str, smi: str) -> dict:
+    """Step 9: step 8's sequence through the three CLIs, in-process:
+    `train --config configs/example/waymo_train_002.yaml` for RUN_ITERS
+    iterations (the watchdog, not this script, grows the capacity;
+    densify at 100 and 150; evals and checkpoints at 150 and 300), a
+    resume to RESUME_ITERS, `render` (render_sets from the checkpoint at
+    300) and `metrics`. Holds the run to its rules (see the checks below)
+    and the four main-path kernels, at the step of iteration 300, against
+    their plain versions on that step's own inputs. Returns the kernels'
+    launches in training and in render_sets, their errors, and the
+    numbers printed."""
+    from street_gaussians_torch import checkpoint, runner
+    from street_gaussians_torch import metrics as metrics_cli
+    from street_gaussians_torch import render as render_cli
+    from street_gaussians_torch import train as train_cli
+    from street_gaussians_torch.config import load_config
+    from street_gaussians_torch.data.dataset import load_ground_truth
+    from street_gaussians_torch.models import sky_cubemap
+    from street_gaussians_torch.models.renderer import render_frame
+    from street_gaussians_torch.ops import fill, rasterize, segsum, tile_raster2
+    from street_gaussians_torch.script import block_times
+    from street_gaussians_torch.train_lib import init_train_state
+    from street_gaussians_torch.utils import losses as L
+    from street_gaussians_torch.utils import ply
+
+    kernels = (fill.expand_runs, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd,
+               segsum.segment_rowsum)
+    out = os.path.join(tmp, "runner")
+    recipe = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "example", "waymo_train_002.yaml")
+    opts = ["source_path", root, "model_path", out, "data.selected_frames", f"[0, {SEQ_FRAMES - 1}]",
+            "data.use_tracker", "false", "train.test_iterations", f"[150, {RUN_ITERS}]",
+            "train.save_iterations", f"[{RUN_ITERS}]", "train.checkpoint_iterations", f"[150, {RUN_ITERS}]",
+            "optim.densify_from_iter", "50", "optim.densification_interval", "50",
+            "optim.densify_until_iter", str(RUN_GATE), "train.eval_max_views", "5"]
+    argv = ["--config", recipe, "--device", dev.type, *opts]
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    # the kernels' inputs in the step of iteration RUN_ITERS, for the check
+    # against their plain versions (as step 8e); every step fn the runner
+    # builds (again after a growth) is wrapped
+    recs = {}
+    make_step = runner.make_train_step
+
+    def recording_make_step(*a, **kw):
+        step_fn = make_step(*a, **kw)
+
+        def step(state, *args, **kwargs):
+            if state.step != RUN_ITERS - 1:
+                return step_fn(state, *args, **kwargs)
+            recs.update({"expand_runs": CallRecorder(fill.expand_runs, [fill]),
+                         "forward": CallRecorder(tile_raster2._forward, [tile_raster2]),
+                         "tile_blend_bwd": CallRecorder(tile_raster2.tile_blend_bwd, [tile_raster2]),
+                         "segment_rowsum": CallRecorder(segsum.segment_rowsum, [rasterize, sky_cubemap])})
+            try:
+                return step_fn(state, *args, **kwargs)
+            finally:
+                for rec in recs.values():
+                    rec.restore()
+
+        return step
+
+    # ---- 9a. train ----
+    for k in kernels:
+        k.launches = 0
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    runner.make_train_step = recording_make_step
+    np.random.seed(0)  # the actor's grid colours
+    t0 = time.perf_counter()
+    try:
+        final = train_cli.main(argv + ["train.iterations", str(RUN_ITERS)])
+    finally:
+        runner.make_train_step = make_step
+    sync()
+    t_train = time.perf_counter() - t0
+    train_launches = {k.__name__: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    if cuda and any(n == 0 for n in train_launches.values()):
+        raise AssertionError(f"runner: a main-path kernel was not launched in training: {train_launches}")
+    with open(os.path.join(out, "record", "train_log.jsonl")) as f:
+        log_recs = [json.loads(line) for line in f]
+    steps = [r for r in log_recs if "loss" in r]
+    if [r["iteration"] for r in steps] != list(range(10, RUN_ITERS + 1, 10)):
+        raise AssertionError(f"runner: step records at {[r['iteration'] for r in steps]}")
+    if not all(math.isfinite(r["loss"]) for r in steps):
+        raise AssertionError("runner: a logged loss is not finite")
+    dens = [r["iteration"] for r in log_recs if "densify/points_clone" in r]
+    if dens != [100, 150]:
+        raise AssertionError(f"runner: densify records at {dens}, expected [100, 150]")
+    for ev in final["growth"]:
+        window = [r for r in steps if ev["iteration"] - 100 < r["iteration"] <= ev["iteration"]]
+        hits = sum(1 for r in window if r[f"overflow_{ev['capacity'].split('_')[0]}"] > 0)
+        if ev["iteration"] % 100 or len(window) != 10 or hits < 5 or hits != ev["hits"] or (
+                ev["to"] != 2 * ev["from"] and ev["to"] != 0):
+            raise AssertionError(f"runner: growth {ev} against its window's {hits} hits in {len(window)} samples")
+        log(f"[runner] growth at iteration {ev['iteration']}: {ev['capacity']} {ev['from']} -> {ev['to']} "
+            f"({ev['hits']}/10 samples overflowed)")
+    evals = [r for r in log_recs if "train_psnr" in r]
+    if [r["iteration"] for r in evals] != [150, RUN_ITERS]:
+        raise AssertionError(f"runner: evals at {[r['iteration'] for r in evals]}")
+
+    # ---- 9b. the checkpoint, the PLY and the checksum ----
+    cfg = load_config(recipe, opts, "train")
+    np.random.seed(0)
+    scene = runner.build_trained_scene(cfg, dev)
+    template = init_train_state(runner.build_initial_params(cfg, scene, dev), scene.aux_init)
+    state, it = checkpoint.load_train_state(cfg.trained_model_dir, template, RUN_ITERS)
+    again_dir = os.path.join(tmp, "resaved")
+    checkpoint.save_train_state(again_dir, RUN_ITERS, state)
+    again, _ = checkpoint.load_train_state(again_dir, template)
+    saved = torch.load(os.path.join(cfg.trained_model_dir, f"iteration_{RUN_ITERS}", checkpoint.STATE_FILE),
+                       map_location="cpu", weights_only=True)
+    flat, flat2 = checkpoint.state_to_flat(state), checkpoint.state_to_flat(again)
+    for k, v in saved.items():
+        if not (torch.equal(v, flat[k].cpu()) and torch.equal(v, flat2[k].cpu())):
+            raise AssertionError(f"runner: checkpoint leaf {k} not bit-equal after reload and re-save")
+    if runner.param_checksum(state.params) != final["param_checksum"]:
+        raise AssertionError(f"runner: param_checksum {final['param_checksum']} != the checkpoint's "
+                             f"{runner.param_checksum(state.params)}")
+    elements = ply.read_ply(os.path.join(cfg.point_cloud_dir, f"iteration_{RUN_ITERS}", "point_cloud.ply"))
+    alive = state.aux.alive.cpu().numpy()
+    xyz = state.params.gaussians.xyz.cpu().numpy()
+    for mi, name in enumerate(scene.table.names):
+        s, e = scene.table.slices[mi]
+        el = elements[f"vertex_{name}"]
+        want = xyz[s:e][alive[s:e]]
+        if len(el) != len(want) or not np.array_equal(np.stack([el["x"], el["y"], el["z"]], -1), want):
+            raise AssertionError(f"runner: PLY element vertex_{name} does not hold the alive rows")
+    log(f"[check] runner checkpoint at {RUN_ITERS}: {len(saved)} leaves bit-equal after reload and re-save; "
+        f"param_checksum {final['param_checksum']!r} equal; the PLY holds the {int(alive.sum())} alive rows")
+
+    # ---- 9c. the kernels on the step of iteration RUN_ITERS ----
+    C = scene.table.capacity
+    errors = gate_step_checks(recs, C, f"runner step {RUN_ITERS}")
+    recs.clear()
+    # the eval views in eval mode, on the initial weights and on the
+    # trained state: run lengths of the first, PSNR of all five
+    eval_views = scene.train_views[:5]
+    gts = [load_ground_truth(v, device=dev) for v in eval_views]
+    psnr0 = []
+    for label, st in (("initial weights", template), (f"trained, iteration {RUN_ITERS}", state)):
+        rec = CallRecorder(tile_raster2._forward, [tile_raster2])
+        try:
+            with torch.no_grad():
+                psnrs = [float(L.psnr(render_frame(st.params, st.aux, scene.table, scene.pose_data, v.frame_input,
+                                                   10**9, opts=runner.render_opts_from_cfg(cfg, "eval"))["rgb"],
+                                      gt.image, gt.mask)) for v, gt in zip(eval_views, gts)]
+        finally:
+            rec.restore()
+        psnr0 = psnr0 or psnrs
+        log(f"[runs] view {eval_views[0].image_name} in eval mode, {label}: "
+            f"{json.dumps(block_times.run_length_stats(rec.calls[0][0][2]))}; PSNR of the {len(eval_views)} eval "
+            f"views {[round(x, 4) for x in psnrs]}")
+    del gts
+    del state, again, template, flat, flat2, saved, scene
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # ---- 9d. resume ----
+    grown = int(final["growth"][-1]["to"]) if final["growth"] else None
+    resume_argv = argv + ["train.iterations", str(RESUME_ITERS)]
+    if grown:  # the grown capacity is in neither the checkpoint nor the snapshot (as in the JAX package)
+        resume_argv += ["render.instance_capacity", str(grown)]
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        resumed = train_cli.main(resume_argv)
+    t_resume = time.perf_counter() - t0
+    sys.stdout.write(printed.getvalue())
+    with open(os.path.join(out, "record", "train_log.jsonl")) as f:
+        tail = [json.loads(line)["iteration"] for line in f][len(log_recs):]
+    if f"[resume] restored iteration {RUN_ITERS}" not in printed.getvalue() or \
+            resumed["start_iteration"] != RUN_ITERS or tail != list(range(RUN_ITERS + 10, RESUME_ITERS + 1, 10)):
+        raise AssertionError(f"runner: resume from {resumed['start_iteration']}, new records {tail}")
+
+    # ---- 9e. render and metrics ----
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    served = render_cli.main(["--config", recipe, "--device", dev.type, *opts])
+    sync()
+    t_render = time.perf_counter() - t0
+    render_launches = {k.__name__: k.launches for k in kernels}
+    if cuda and (render_launches["expand_runs"] == 0 or render_launches["tile_blend_instances"] == 0):
+        raise AssertionError(f"runner: render_sets launched {render_launches}")
+    pngs = os.listdir(os.path.join(out, "train_renders"))
+    if len(pngs) != 3 * SEQ_FRAMES:
+        raise AssertionError(f"runner: render_sets wrote {len(pngs)} PNGs")
+    t0 = time.perf_counter()
+    scores = metrics_cli.main(["--config", recipe, "--device", dev.type, *opts])
+    t_metrics = time.perf_counter() - t0
+    tr = scores["train"]
+    if not (math.isfinite(tr["psnr"]) and math.isfinite(tr["ssim"]) and len(tr["per_view"]) == 3 * SEQ_FRAMES):
+        raise AssertionError(f"runner: metrics {tr['psnr']}, {tr['ssim']} over {len(tr['per_view'])} views")
+
+    # ---- 9f. the runner on the card against the CPU ----
+    if cuda:
+        small_runner_check(dev)
+
+    # ---- 9g. numbers ----
+    tm = final["timing"]
+    other = tm["load_s"] + tm["ground_truth_s"] + tm["eval_s"] + tm["save_s"] + tm["resume_s"]
+    stages = {"load_s": tm["load_s"], "first_epoch_ground_truth_s": tm["ground_truth_s"],
+              "steps_s": tm["total_s"] - other, "evals_s": tm["eval_s"], "saves_s": tm["save_s"],
+              "train_total_s": tm["total_s"], "resume_run_s": t_resume}
+    last_growth = max((ev["iteration"] for ev in final["growth"]), default=0)
+    clean = [w for w in tm["windows"] if not w["with"]]
+    sides = {}
+    for side, keep in (("before the gate", lambda w: w["iteration"] <= RUN_GATE),
+                       ("after the gate", lambda w: w["iteration"] - 9 > RUN_GATE)):
+        ws = [w["ms_per_step"] for w in clean if keep(w) and w["iteration"] - 9 > last_growth]
+        sides[side] = {"windows": len(ws), "ms_per_step": sum(ws) / len(ws) if ws else None}
+    caps = {}  # mean ms/step of the clean windows at each capacity and side of the gate
+    for w in clean:
+        cap = max([ev["to"] for ev in final["growth"] if ev["iteration"] < w["iteration"] - 9],
+                  default=int(cfg.render.instance_capacity))
+        key = f"{cap} {'after' if w['iteration'] - 9 > RUN_GATE else 'before'}"
+        caps.setdefault(key, []).append(w["ms_per_step"])
+    by_capacity = {k: sum(v) / len(v) for k, v in caps.items()}
+    log(f"[runner] {smi}: stages {json.dumps({k: round(v, 3) for k, v in stages.items()})}")
+    log(f"[runner] {smi}: ms/step over clean 10-iteration windows after the last growth (iteration "
+        f"{last_growth}): {json.dumps(sides)}; by instance capacity and side of the gate: "
+        f"{json.dumps(by_capacity)}; peak memory {peak / 2**30:.3f} GiB; GTCache {final['gt_cache_bytes']} bytes "
+        f"for {final['gt_cache_views']} views; launches in {RUN_ITERS} iterations {train_launches}")
+    log(f"[render] {smi}: ladder {json.dumps(served.get('capacities'))}; {served['render_ms']:.3f} ms/view "
+        f"({served['fps']:.3f} FPS), fps_throughput {served['fps_throughput']:.3f}; regrows {served['regrows']}; "
+        f"{t_render:.2f} s in all; launches {render_launches}")
+    log(f"[metrics] {smi}: train PSNR {tr['psnr']:.4f} SSIM {tr['ssim']:.4f} over {len(tr['per_view'])} views "
+        f"({t_metrics:.2f} s); eval train_psnr at 150 and {RUN_ITERS} {evals[0]['train_psnr']:.4f}, "
+        f"{evals[-1]['train_psnr']:.4f} against the first logged psnr {steps[0]['psnr']:.4f} and the eval views' "
+        f"initial {sum(psnr0) / len(psnr0):.4f}")
+    # training improved the eval views: their PSNR at RUN_ITERS (the
+    # runner's eval) above the same views' PSNR on the initial weights.
+    # (The first logged psnr is another view's, in train mode: the views'
+    # PSNRs differ by several dB, so it is printed, not compared.)
+    if not evals[-1]["train_psnr"] > sum(psnr0) / len(psnr0):
+        raise AssertionError(f"runner: eval train_psnr {evals[-1]['train_psnr']} at {RUN_ITERS} not above the same "
+                             f"views' initial {sum(psnr0) / len(psnr0)}")
+    return {
+        "launches": {k: {"train": train_launches[k], "render_sets": render_launches[k]} for k in train_launches},
+        "errors": errors,
+        "stages_s": stages,
+        "ms_per_step": sides,
+        "ms_per_step_by_capacity": by_capacity,
+        "growth": final["growth"],
+        "peak_gib": peak / 2**30,
+        "gt_cache_bytes": final["gt_cache_bytes"],
+        "train_s": t_train,
+        "render": {k: served[k] for k in ("capacities", "render_ms", "fps", "fps_throughput", "regrows")
+                   if k in served},
+        "metrics": {"psnr": tr["psnr"], "ssim": tr["ssim"]},
+    }
+
+
+def small_runner_check(dev, iterations: int = 20):
+    """runner.training for `iterations` on a small Waymo-format sequence
+    (2 frames of camera 0 at 64x96, the vehicle in view; no sky, no flip,
+    no densify: nothing drawn), on the card and on the CPU: the logged
+    losses within rtol 1e-4, and the saved states under params_close's
+    rules (the reference gradient: the CPU run's first Adam moment), rot
+    within params_close's bound for noise-level rows (identity rotations
+    of isotropic Gaussians have rounding-noise gradients; see
+    tests/test_torch_runner.py), integers equal."""
+    from street_gaussians_torch import checkpoint, runner
+    from street_gaussians_torch.config import load_config
+    from street_gaussians_torch.data.synthetic_waymo import write_synthetic_waymo
+    from street_gaussians_torch.train_lib import flatten_params, init_train_state
+
+    tmp = tempfile.mkdtemp(prefix="sg_small_runner_")
+    try:
+        root = os.path.join(tmp, "seq")
+        write_synthetic_waymo(root, num_frames=2, cameras=(0,), actor_in_view=True)
+        res = []
+        for i, d in enumerate((torch.device("cpu"), dev)):
+            cfg = load_config(None, [
+                "source_path", root, "model_path", os.path.join(tmp, str(i)), "data.type", "Waymo",
+                "data.split_train", "1", "data.cameras", "[0]", "model.nsg.include_sky", "false",
+                "model.gaussian.flip_prob", "0", "optim.lambda_reg", "0.1", "optim.densify_from_iter", "1000",
+                "optim.densify_until_iter", "15", "optim.opacity_reset_interval", "10",
+                "train.iterations", str(iterations), "train.test_iterations", "[]", "train.save_iterations", "[]",
+                "train.checkpoint_iterations", f"[{iterations}]", "render.instance_capacity", "32768"])
+            np.random.seed(0)
+            runner.training(cfg, progress=False, device=d)
+            with open(os.path.join(cfg.record_dir, "train_log.jsonl")) as f:
+                losses = [json.loads(line)["loss"] for line in f]
+            np.random.seed(0)
+            scene = runner.build_scene(cfg, d)
+            tpl = init_train_state(runner.build_initial_params(cfg, scene, d), scene.aux_init)
+            state, _ = checkpoint.load_train_state(cfg.trained_model_dir, tpl)
+            res.append(dict(losses=losses, params=_numpy(flatten_params(state.params)),
+                            mu=_numpy(state.adam.mu), count=_numpy(state.adam.count),
+                            alive=state.aux.alive.cpu().numpy(), denom=state.aux.denom.cpu().numpy()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    b, a = res
+    if not np.allclose(a["losses"], b["losses"], rtol=1e-4):
+        raise AssertionError(f"small runner losses card {a['losses']} vs CPU {b['losses']}")
+    lr = {"gaussians.xyz": 0.00016 * 20.0, "gaussians.feat_dc": 0.0025, "gaussians.feat_rest": 0.0025 / 20,
+          "gaussians.log_scale": 0.005, "gaussians.rot": 0.001, "gaussians.opacity_logit": 0.05,
+          "actor_pose.opt_trans": 0.0005, "actor_pose.opt_rots": 0.001}
+    for k in b["params"]:
+        if k == "gaussians.rot":
+            if np.abs(a["params"][k] - b["params"][k]).max() > 2 * lr[k] * iterations:
+                raise AssertionError("small runner: rot beyond 2 lr per step")
+            continue
+        params_close(a["params"][k], b["params"][k], b["mu"][k], lr.get(k, 0.0), iterations, f"small runner {k}")
+        if not np.array_equal(a["count"][k], b["count"][k]):
+            raise AssertionError(f"small runner: count {k} differs")
+    if not (np.array_equal(a["alive"], b["alive"]) and np.array_equal(a["denom"], b["denom"])):
+        raise AssertionError("small runner: alive rows or visibility counts differ")
+    log(f"[check] small runner ({iterations} iterations, 64x96, the vehicle in view, object loss from 15), card vs "
+        f"CPU: losses {[round(x, 6) for x in a['losses']]} vs {[round(x, 6) for x in b['losses']]}; parameters "
+        f"within params_close, counts and alive rows equal")
 
 
 def search_only_ms(fn, reps: int) -> float:

@@ -1,15 +1,22 @@
-"""Configuration: the JAX package's Config and default_config().
+"""Configuration: defaults, then the YAML file with its parents, then
+`KEY VALUE` overrides from the command line.
 
-Copied from street_gaussians_tpu/config.py (the nested dict with
-attribute access and the reference's tunables with their defaults). The
-YAML loading, merging and CLI overrides are not ported yet; this module
-imports no yaml, which the card's machine lacks.
+Port of street_gaussians_tpu/config.py: the nested dict with attribute
+access, the reference's tunables with their defaults, the recursive
+`parent_cfg` merge, the output paths and the config snapshot. The YAML
+is read and written by utils/yaml_subset.py (the subset every file under
+configs/ uses, resolved as PyYAML's safe_load resolves it), so this
+module needs no PyYAML, which the card's machine is not known to have.
 """
 
 from __future__ import annotations
 
+import argparse
 import copy
-from typing import Any, Dict
+import os
+from typing import Any, Dict, List, Optional
+
+from street_gaussians_torch.utils import yaml_subset
 
 
 class Config(dict):
@@ -35,6 +42,19 @@ class Config(dict):
         for k, v in d.items():
             out[k] = Config.from_dict(v) if isinstance(v, dict) else v
         return out
+
+    def to_dict(self) -> Dict:
+        return {k: v.to_dict() if isinstance(v, Config) else v for k, v in self.items()}
+
+    def merge(self, other: Dict) -> "Config":
+        """Recursive in-place merge (other wins); new keys allowed, like the
+        reference's `new_allowed=True` yacs nodes."""
+        for k, v in other.items():
+            if k in self and isinstance(self[k], Config) and isinstance(v, dict):
+                self[k].merge(v)
+            else:
+                self[k] = Config.from_dict(v) if isinstance(v, dict) else v
+        return self
 
 
 def default_config() -> Config:
@@ -210,3 +230,89 @@ def default_config() -> Config:
             },
         }
     )
+
+
+def _parse_value(s: str) -> Any:
+    """A CLI override value, read as a one-line YAML document (ints,
+    floats, bools, None, lists); the string itself where that fails."""
+    try:
+        return yaml_subset.loads(s)
+    except yaml_subset.YAMLSubsetError:
+        return s
+
+
+def _set_dotted(cfg: Config, key: str, value: Any) -> None:
+    parts = key.split(".")
+    node = cfg
+    for p in parts[:-1]:
+        if p not in node or not isinstance(node[p], Config):
+            node[p] = Config()
+        node = node[p]
+    node[parts[-1]] = Config.from_dict(value) if isinstance(value, dict) else value
+
+
+def load_yaml_with_parents(path: str) -> Config:
+    """A YAML file with its `parent_cfg` chain merged under it (the
+    parent relative to the file, else to `workspace`; ref:
+    lib/utils/cfg_utils.py:80-89)."""
+    current = yaml_subset.load_file(path) or {}
+    if "parent_cfg" in current:
+        parent_path = current.pop("parent_cfg")
+        if not os.path.isabs(parent_path):
+            parent_path = os.path.join(os.path.dirname(path), parent_path)
+            if not os.path.exists(parent_path):
+                parent_path = current.get("workspace", ".") + "/" + parent_path
+        base = load_yaml_with_parents(parent_path)
+    else:
+        base = Config()
+    return base.merge(current)
+
+
+def derive_paths(cfg: Config) -> Config:
+    """Output path derivation (ref: lib/utils/cfg_utils.py:35-74)."""
+    if not cfg.get("model_path"):
+        cfg.model_path = os.path.join("output", cfg.task, cfg.exp_name)
+    cfg.trained_model_dir = os.path.join(cfg.model_path, "trained_model")
+    cfg.point_cloud_dir = os.path.join(cfg.model_path, "point_cloud")
+    if not cfg.get("record_dir"):
+        cfg.record_dir = os.path.join(cfg.model_path, "record")
+    return cfg
+
+
+def load_config(
+    config_path: Optional[str] = None,
+    overrides: Optional[List[str]] = None,
+    mode: str = "",
+) -> Config:
+    """defaults -> YAML (+ parents) -> `KEY VALUE` overrides -> mode
+    (ref: lib/config/config.py:150-158)."""
+    cfg = default_config()
+    if config_path:
+        cfg.merge(load_yaml_with_parents(config_path))
+    if overrides:
+        assert len(overrides) % 2 == 0, "overrides must be KEY VALUE pairs"
+        for k, v in zip(overrides[::2], overrides[1::2]):
+            _set_dotted(cfg, k, _parse_value(v))
+    if mode:
+        cfg.mode = mode
+    return derive_paths(cfg)
+
+
+def make_argparser(description: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--config", type=str, default=None)
+    p.add_argument("--mode", type=str, default="")
+    p.add_argument("opts", default=None, nargs=argparse.REMAINDER)
+    return p
+
+
+def config_from_args(args: argparse.Namespace) -> Config:
+    return load_config(args.config, args.opts, args.mode)
+
+
+def save_config(cfg: Config, path: str) -> None:
+    """Config snapshot (ref: lib/utils/cfg_utils.py:101-111), in block
+    style with lists of scalars in flow style."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(yaml_subset.dumps(cfg.to_dict()))

@@ -1,4 +1,11 @@
-"""Training: the bench train cell on one camera.
+"""Training: a scene from a YAML config, or the bench train cell.
+
+    python -m street_gaussians_torch.train --config CONFIG.yaml [--device D] [KEY VALUE ...]
+
+runs runner.training on the config (the JAX package's root train.py):
+defaults, then the YAML file with its parents, then the KEY VALUE
+overrides; checkpoints, PLY snapshots and train_log.jsonl land under
+model_path. Without --config:
 
     python -m street_gaussians_torch.train [--steps N] [--device cuda]
         [--profile TRACE.json]
@@ -34,6 +41,7 @@ from street_gaussians_torch.models.renderer import RenderOptions, SceneParams, r
 from street_gaussians_torch.models.sky_cubemap import init_sky
 from street_gaussians_torch.train_lib import (
     GroundTruth,
+    densify_cadence,
     init_train_state,
     make_densify_fn,
     make_reset_opacity_fn,
@@ -106,32 +114,29 @@ def bench_train_cell(device=None, seed: int = 0, sky_resolution: int = serve.SKY
 
 def run_step(cell: TrainCell, state, generator):
     """One train step plus the reference's densify / reset cadence after
-    it (iteration = the step's 1-based number): while iteration <
-    densify_until_iter, densify every densification_interval iterations
-    after densify_from_iter, reset the opacities every
-    opacity_reset_interval iterations, and once more at densify_from_iter
-    when data.white_background is set."""
+    it (train_lib.densify_cadence, with the step's 1-based number)."""
     state, scalars = cell.step_fn(state, cell.frame, cell.gt, generator)
-    o = cell.cfg.optim
-    it = state.step
-    if it < o.densify_until_iter:
-        if it > o.densify_from_iter and it % o.densification_interval == 0:
-            state, _ = cell.densify_fn(state, generator, it > o.opacity_reset_interval)
-        if it % o.opacity_reset_interval == 0:
-            state = cell.reset_fn(state)
-        if cell.cfg.data.white_background and it == o.densify_from_iter:
-            state = cell.reset_fn(state)
+    state, _ = densify_cadence(cell.cfg, state, state.step, cell.densify_fn, cell.reset_fn, generator)
     return state, scalars
 
 
-def main(argv=None) -> None:
+def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", default=None, help="train the scene of this YAML config (runner.training)")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     ap.add_argument("--profile", metavar="TRACE", default=None,
                     help="trace the timed steps and write a Chrome trace here")
+    ap.add_argument("opts", nargs=argparse.REMAINDER, help="with --config: KEY VALUE overrides")
     args = ap.parse_args(argv)
+    if args.config:
+        from street_gaussians_torch.config import load_config
+        from street_gaussians_torch.runner import training
+
+        return training(load_config(args.config, args.opts, "train"), device=resolve_device(args.device))
+    if args.opts:
+        ap.error(f"KEY VALUE overrides need --config: {args.opts}")
 
     device = resolve_device(args.device)
     cuda = device.type == "cuda"

@@ -421,6 +421,28 @@ def make_densify_fn(cfg: Config, table: G.SceneTable):
     return densify_fn
 
 
+def densify_cadence(cfg: Config, state: TrainState, iteration: int, densify_fn, reset_fn,
+                    generator: Optional[torch.Generator]):
+    """The reference's densify and reset cadence after the step numbered
+    `iteration` (1-based; ref: train.py:186-210, runner.py:825-851):
+    while iteration < densify_until_iter, densify every
+    densification_interval iterations after densify_from_iter (pruning
+    big points once iteration > opacity_reset_interval), reset the
+    opacities every opacity_reset_interval iterations, and once more at
+    densify_from_iter when data.white_background is set. Returns (state,
+    densify's diagnostics, or None when it did not run)."""
+    o = cfg.optim
+    diag = None
+    if iteration < o.densify_until_iter:
+        if iteration > o.densify_from_iter and iteration % o.densification_interval == 0:
+            state, diag = densify_fn(state, generator, iteration > o.opacity_reset_interval)
+        if iteration % o.opacity_reset_interval == 0:
+            state = reset_fn(state)
+        if cfg.data.get("white_background", False) and iteration == o.densify_from_iter:
+            state = reset_fn(state)
+    return state, diag
+
+
 def make_reset_opacity_fn():
     """reset_fn(state) -> state with opacity clamped to <= 0.01 and its
     Adam moments zeroed (step counts kept)."""

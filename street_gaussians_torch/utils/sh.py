@@ -63,6 +63,11 @@ def rgb_to_sh(rgb):
     return (rgb - 0.5) / C0
 
 
+def sh_to_rgb(sh):
+    """The inverse of rgb_to_sh; numpy arrays and tensors alike."""
+    return sh * C0 + 0.5
+
+
 def idft_basis(t: torch.Tensor, dim: int) -> torch.Tensor:
     """[..., dim]: cos(pi k t) for even k, sin(pi (k+1) t) for odd k."""
     t = t[..., None]

@@ -22,6 +22,7 @@ from chip_smoke import (
     random_blend_case,
     random_expand_case,
     random_table_case,
+    small_runner_check,
     small_step_check,
 )
 from street_gaussians_torch.kernels import _build
@@ -349,6 +350,16 @@ def test_train_steps_with_object_loss_match_cpu(cuda_device):
     gradients, parameters, moments and statistics within the CPU tests'
     tolerances (chip_smoke.grads_close and params_close)."""
     small_step_check(cuda_device, lambda_reg=0.1)
+
+
+@pytest.mark.cuda
+def test_runner_training_matches_cpu(cuda_device):
+    """20 iterations of runner.training on a small Waymo-format sequence
+    (nothing drawn; the opacity reset at 10, the object-opacity loss from
+    15), on the card and on the CPU: logged losses, saved parameters,
+    step counts and alive rows within the CPU tests' tolerances
+    (chip_smoke.small_runner_check, params_close)."""
+    small_runner_check(cuda_device)
 
 
 def test_every_source_is_built_by_name():
