@@ -78,10 +78,27 @@
    `[runner]`, `[render]` and `[metrics]` lines: seconds per stage,
    ms/step, the ladder, ms/view, frames per second, peak memory and the
    ground-truth cache's bytes;
-10. prints one `kernels` JSON line with all eight kernels (with the
-   loaded sequence's launches before and after the gate, and step 9's in
-   training and in render_sets);
-11. prints {"ok": true, "device": {...}} as the last line.
+10. semantics at 20 classes and normals (F = 27 blend features, past
+   the 8 the kernels are instantiated for): holds kernels 2.1, 2.2, 2.5
+   and 2.6 against their plain versions at F = 7, 24, 27 and 64 (random
+   and long-run cases, random cotangents on every channel); renders the
+   bench scene with semantics and normals, holds 2.1 and 2.2 on that
+   frame's own inputs, times them at F = 4 and 27 in turns (2.5 and 2.6
+   on the random table), and times views at F = 4 and 27 and at
+   sky_downsample 1, 2 and 4 in turns, then a small F = 27 render card
+   against CPU; trains step 8's sequence through the runner with the
+   Waymo recipe and semantics and normals on for 30 iterations across
+   densify_until_iter (the step after the gate held against the plain
+   kernels, the PLY's 20 semantic columns), times its train step at F =
+   4 and 27 on the same views in turns, runs `render --mode trajectory`
+   (camera 0, sky_downsample 4, save_video false), every frame finite and
+   written; LPIPS on weights from a seed at 1600x1067, card against CPU.
+   `[wide]` lines;
+11. prints one `kernels` JSON line with all eight kernels (with the
+   loaded sequence's launches before and after the gate, step 9's in
+   training and in render_sets, and step 10's F = 27 times, bounds,
+   launches and the F = 4 times in turns with them);
+12. prints {"ok": true, "device": {...}} as the last line.
 
 Any failure raises (exit code != 0). Without CUDA, or without the rest
 of the repository beside it, it fails before printing a result.
@@ -381,9 +398,9 @@ LONG_RUNS = (12_000, 0, 300, 10_500, 1_025, 1_024, 2_048, 5_000, 37, 0, 2_065, 6
 LONG_OPACITIES = ((0.02, 0.99), (0.02, 0.05), (0.004, 0.008))
 
 
-def long_blend_case(seed: int, dev, opacity):
+def long_blend_case(seed: int, dev, opacity, F: int = 4):
     """random_blend_case with LONG_RUNS on a 4x4 grid."""
-    return random_blend_case(seed, dev, grid_x=4, grid_y=4, counts=LONG_RUNS,
+    return random_blend_case(seed, dev, grid_x=4, grid_y=4, F=F, counts=LONG_RUNS,
                              opacity_lo=opacity[0], opacity_hi=opacity[1])
 
 
@@ -611,6 +628,8 @@ def main() -> int:
         seq = waymo_phase(dev, tmp)
         torch.cuda.empty_cache()
         run = runner_phase(dev, os.path.join(tmp, "seq"), tmp, smi)
+        torch.cuda.empty_cache()
+        wide = wide_phase(dev, os.path.join(tmp, "seq"), tmp, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -637,6 +656,10 @@ def main() -> int:
         if name in seq["launches"]:
             extra = {**extra, "waymo_launches": seq["launches"][name],
                      "waymo_launches_per_step": {k: v / TRAIN_STEPS for k, v in seq["launches"][name].items()}}
+        if name in wide["errors"]:
+            err = max(err, wide["errors"][name])
+        if name in wide["f27"]:
+            extra = {**extra, f"f{WIDE_F}": wide["f27"][name]}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": n, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
                         "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": lib, **extra})
@@ -648,6 +671,7 @@ def main() -> int:
 
     log(f"[waymo] summary: {json.dumps({k: v for k, v in seq.items() if k not in ('launches', 'errors')})}")
     log(f"[runner] summary: {json.dumps({k: v for k, v in run.items() if k not in ('launches', 'errors')})}")
+    log(f"[wide] summary: {json.dumps(wide['numbers'])}")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1084,12 +1108,12 @@ def runner_phase(dev, root: str, tmp: str, smi: str) -> dict:
     from street_gaussians_torch import train as train_cli
     from street_gaussians_torch.config import load_config
     from street_gaussians_torch.data.dataset import load_ground_truth
-    from street_gaussians_torch.models import sky_cubemap
     from street_gaussians_torch.models.renderer import render_frame
-    from street_gaussians_torch.ops import fill, rasterize, segsum, tile_raster2
+    from street_gaussians_torch.ops import fill, segsum, tile_raster2
     from street_gaussians_torch.script import block_times
     from street_gaussians_torch.train_lib import init_train_state
     from street_gaussians_torch.utils import losses as L
+    from street_gaussians_torch.utils import lpips as lpips_lib
     from street_gaussians_torch.utils import ply
 
     kernels = (fill.expand_runs, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd,
@@ -1106,36 +1130,16 @@ def runner_phase(dev, root: str, tmp: str, smi: str) -> dict:
     sync = torch.cuda.synchronize if cuda else (lambda: None)
 
     # the kernels' inputs in the step of iteration RUN_ITERS, for the check
-    # against their plain versions (as step 8e); every step fn the runner
-    # builds (again after a growth) is wrapped
+    # against their plain versions (as step 8e)
     recs = {}
     make_step = runner.make_train_step
-
-    def recording_make_step(*a, **kw):
-        step_fn = make_step(*a, **kw)
-
-        def step(state, *args, **kwargs):
-            if state.step != RUN_ITERS - 1:
-                return step_fn(state, *args, **kwargs)
-            recs.update({"expand_runs": CallRecorder(fill.expand_runs, [fill]),
-                         "forward": CallRecorder(tile_raster2._forward, [tile_raster2]),
-                         "tile_blend_bwd": CallRecorder(tile_raster2.tile_blend_bwd, [tile_raster2]),
-                         "segment_rowsum": CallRecorder(segsum.segment_rowsum, [rasterize, sky_cubemap])})
-            try:
-                return step_fn(state, *args, **kwargs)
-            finally:
-                for rec in recs.values():
-                    rec.restore()
-
-        return step
-
     # ---- 9a. train ----
     for k in kernels:
         k.launches = 0
     sync()
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
-    runner.make_train_step = recording_make_step
+    runner.make_train_step = recording_make_step(make_step, RUN_ITERS - 1, recs)
     np.random.seed(0)  # the actor's grid colours
     t0 = time.perf_counter()
     try:
@@ -1263,6 +1267,12 @@ def runner_phase(dev, root: str, tmp: str, smi: str) -> dict:
     tr = scores["train"]
     if not (math.isfinite(tr["psnr"]) and math.isfinite(tr["ssim"]) and len(tr["per_view"]) == 3 * SEQ_FRAMES):
         raise AssertionError(f"runner: metrics {tr['psnr']}, {tr['ssim']} over {len(tr['per_view'])} views")
+    # LPIPS only where its weights are found (none ship with the repository)
+    found = lpips_lib.load_weights("alex") is not None
+    if found != ("lpips" in tr) or found != all("lpips" in v for v in tr["per_view"]):
+        raise AssertionError(f"runner: LPIPS weights {'found' if found else 'not found'}, metrics keys {sorted(tr)}")
+    log(f"[metrics] LPIPS: {'weights found, ' + format(tr['lpips'], '.4f') if found else 'no weights found'}"
+        f" ($SGTPU_LPIPS_WEIGHTS or the torch hub cache): {'reported' if found else 'none reported'}")
 
     # ---- 9f. the runner on the card against the CPU ----
     if cuda:
@@ -1321,6 +1331,464 @@ def runner_phase(dev, root: str, tmp: str, smi: str) -> dict:
                    if k in served},
         "metrics": {"psnr": tr["psnr"], "ssim": tr["ssim"]},
     }
+
+
+# ---- step 10: semantics and normals through the widened blend kernels ----
+WIDE_FEATURES = (7, 24, 27, 64)  # normals; semantics at 20 classes; both; the kernels' cap
+SEM_CLASSES = 20  # data.num_classes' default
+WIDE_F = 4 + 3 + SEM_CLASSES  # rgb + depth, normals, semantics: 27
+WIDE_VIEWS = 4  # views a turn
+WIDE_TURNS = 3
+WIDE_ITERS = 30  # the runner session on step 8's sequence
+WIDE_GATE = 20  # its densify_until_iter: the object render (at F = 27) from here on
+WIDE_CAPACITY = 6_291_456  # step 8's capacity for this sequence's initial weights
+LPIPS_SEED = 0
+
+
+def wide_blend_checks(dev, F: int, err: dict) -> None:
+    """Step 10a at one F: the instance blend forward and backward (random
+    cotangents on every channel) and the table blend forward and
+    backward against their plain versions, on the random case and on the
+    long runs; the instance backward with and without the forward's state
+    bit-equal. Raises past the tolerances of steps 3, 5 and 7; the
+    largest errors go into `err`."""
+    from street_gaussians_torch.ops import tile_raster, tile_raster2
+
+    gen = torch.Generator(device=dev).manual_seed(F)
+    cases = {"random ragged (1200 tiles)": random_blend_case(F, dev, F=F),
+             f"long runs (16 tiles, up to {max(LONG_RUNS)} lanes)": long_blend_case(F, dev, LONG_OPACITIES[1], F=F)}
+    for what, case in cases.items():
+        payload, starts, counts, _, gx, T = case
+        out, state = tile_raster2._forward(*case)
+        err["tile_blend_instances"] = max(err["tile_blend_instances"], compare_blend(
+            out, tile_raster2.tile_blend_plain(*case), F, f"tile_blend F={F} {what}"))
+        gout = torch.randn((T, 256, F + 1), generator=gen, device=dev)
+        got = tile_raster2.tile_blend_bwd(payload, starts, counts, out, gout, F, gx, T, state=state)
+        if not torch.equal(got, tile_raster2.tile_blend_bwd(payload, starts, counts, out, gout, F, gx, T)):
+            raise AssertionError(f"tile_blend_bwd F={F} {what}: with and without the forward's state not bit-equal")
+        err["tile_blend_bwd"] = max(err["tile_blend_bwd"], compare_blend_bwd(
+            got, tile_raster2.tile_blend_bwd_plain(payload, starts, counts, out, gout, F, gx, T),
+            live_lanes(payload, starts, counts), F, f"tile_blend_bwd F={F} {what}"))
+    tables = {"random table (1200 tiles, K=768)": random_table_case(F, dev, F=F),
+              "long table (16 tiles, K=16,896)": random_table_case(
+                  F, dev, grid_x=4, grid_y=4, F=F, K=16_896, counts=LONG_RUNS, opacity_hi=0.05)}
+    for what, case in tables.items():
+        payload, counts, _, gx = case
+        out = tile_raster.tile_blend(*case)
+        err["tile_blend_table"] = max(err["tile_blend_table"], compare_blend(
+            out, tile_raster.tile_blend_plain(*case), F, f"table blend F={F} {what}"))
+        gout = torch.randn((counts.numel(), 256, F + 1), generator=gen, device=dev)
+        K = payload.shape[2]
+        live = (torch.arange(K, device=dev)[None, :] < counts[:, None]).reshape(-1)
+        err["tile_blend_table_bwd"] = max(err["tile_blend_table_bwd"], compare_blend_bwd(
+            tile_raster.tile_blend_bwd(payload, counts, out, gout, F, gx),
+            tile_raster.tile_blend_bwd_plain(payload, counts, out, gout, F, gx), live, F,
+            f"table blend backward F={F} {what}"))
+
+
+def semantic_bench_scene(dev, seed: int = 0, **overrides):
+    """serve.bench_scene with semantics at SEM_CLASSES classes, its
+    semantic rows uniform in [0, 1) from `seed` (the initial rows are
+    zeros, which the blend would sum for nothing)."""
+    import dataclasses
+
+    from street_gaussians_torch import serve
+
+    scene, params = serve.bench_scene(seed=seed, device=dev, use_semantic=True, num_classes=SEM_CLASSES, **overrides)
+    g = params.gaussians
+    sem = torch.rand(g.semantic.shape, generator=torch.Generator().manual_seed(seed)).to(dev)
+    return scene, dataclasses.replace(params, gaussians=dataclasses.replace(g, semantic=sem))
+
+
+def wide_phase(dev, root: str, tmp: str, smi: str) -> dict:
+    """Step 10: semantics at SEM_CLASSES classes and normals, F = WIDE_F
+    blend features, past the 8 the kernels are instantiated for.
+    10a: kernels 2.1, 2.2, 2.5 and 2.6 against their plain versions at F in
+    WIDE_FEATURES (random and long-run cases); 10b: the bench serving
+    scene with semantics and normals: kernels 2.1 and 2.2 on that frame's
+    own inputs (2.2 with random cotangents), their times at F = 4 and F =
+    27 in turns, ms/view at F = 4 and 27 and at sky_downsample 1, 2 and 4
+    in turns, a small scene card against CPU; the table kernels' F = 27
+    times on the random case; 10c: a runner session on step 8's sequence
+    with the Waymo recipe, semantics and normals on, across
+    densify_until_iter (the step after the gate held against the plain
+    kernels), its train step at F = 4 and 27 on the same views in turns,
+    then `render --mode trajectory`; 10d: LPIPS at 1600x1067 on weights
+    from a seed, card against CPU. Returns the numbers for the kernels
+    line and the summary."""
+    import dataclasses
+
+    from street_gaussians_torch import checkpoint, runner, serve, visualize
+    from street_gaussians_torch import render as render_cli
+    from street_gaussians_torch import train as train_cli
+    from street_gaussians_torch.config import load_config
+    from street_gaussians_torch.data.dataset import load_ground_truth
+    from street_gaussians_torch.models.renderer import screen_space
+    from street_gaussians_torch.models.sky_cubemap import build_sky_table
+    from street_gaussians_torch.ops import fill, rasterize, segsum, tile_raster, tile_raster2
+    from street_gaussians_torch.script import block_times
+    from street_gaussians_torch.train_lib import Draws, init_train_state, make_train_step
+    from street_gaussians_torch.utils import lpips as lpips_lib
+    from street_gaussians_torch.utils.image_io import imread
+
+    F = WIDE_F
+    out = {"f27": {}, "numbers": {}}
+    err = dict.fromkeys(("tile_blend_instances", "tile_blend_bwd", "tile_blend_table", "tile_blend_table_bwd"), 0.0)
+
+    # ---- 10a. the four kernels at wide F ----
+    t0 = time.perf_counter()
+    for f in WIDE_FEATURES:
+        wide_blend_checks(dev, f, err)
+    log(f"[wide] kernels 2.1, 2.2, 2.5, 2.6 at F = {list(WIDE_FEATURES)} within tolerance of their plain "
+        f"versions ({time.perf_counter() - t0:.2f} s)")
+    torch.cuda.empty_cache()
+
+    # ---- 10b. the bench serving scene with semantics and normals ----
+    scene, params = semantic_bench_scene(dev)
+    frame = scene.frames[0]
+    H, W = frame.cam.H, frame.cam.W
+    opts4 = serve.SERVE_OPTS
+    opts = {4: opts4, F: dataclasses.replace(opts4, use_semantic=True, render_normal=True)}
+    with torch.no_grad():
+        bins = {}
+        for f, o in opts.items():
+            screen, composed = screen_space(params, scene.aux, scene.table, scene.pose_data, frame,
+                                            serve.SERVE_STEP, opts=o)
+            extras = [composed[k] for k in ("normals", "semantic") if composed[k] is not None]
+            cfg_r = rasterize.RasterizeConfig(o.tile_capacity, o.instance_capacity, corner_cull=o.corner_cull)
+            bins[f] = rasterize.blend_inputs(screen, H, W, torch.cat(extras, -1) if extras else None, config=cfg_r)
+        del screen, composed, extras
+        bi = bins[F]
+        if bi.num_features != F:
+            raise AssertionError(f"the semantic bench frame blends {bi.num_features} features, expected {F}")
+        gx, T = bi.grid_x, bi.grid_x * bi.grid_y
+        b_args = {f: (b.payload, b.bins.tile_start, b.bins.tile_count, f, gx, T) for f, b in bins.items()}
+        b_out, state = tile_raster2._forward(*b_args[F])
+        b_ref, work = tile_raster2.tile_blend_plain(*b_args[F], return_work=True)
+        err["tile_blend_instances"] = max(err["tile_blend_instances"], compare_blend(
+            b_out, b_ref, F, f"tile_blend F={F} semantic bench frame ({T} tiles)"))
+        gout = torch.randn((T, 256, F + 1), generator=torch.Generator(device=dev).manual_seed(27), device=dev)
+        bwd_args = (*b_args[F][:3], b_out, gout, F, gx, T)
+        live_mask = live_lanes(*b_args[F][:3])
+        got = tile_raster2.tile_blend_bwd(*bwd_args, state=state)
+        if not torch.equal(got, tile_raster2.tile_blend_bwd(*bwd_args)):
+            raise AssertionError("tile_blend_bwd F=27 semantic bench frame: with and without the state not bit-equal")
+        err["tile_blend_bwd"] = max(err["tile_blend_bwd"], compare_blend_bwd(
+            got, tile_raster2.tile_blend_bwd_plain(*bwd_args), live_mask, F,
+            f"tile_blend_bwd F={F} semantic bench frame ({T} tiles)"))
+        del got, b_ref
+        log(f"[runs] semantic bench frame: {json.dumps(block_times.run_length_stats(bi.bins.tile_count))}")
+        for row in block_times.block_times("tile_blend", lambda: tile_raster2.tile_blend_instances(*b_args[F]), F):
+            log(f"[blocks] forward F={F}, semantic bench frame: {json.dumps(row)}")
+        for row in block_times.block_times("tile_blend_bwd",
+                                           lambda: tile_raster2.tile_blend_bwd(*bwd_args, state=state), F):
+            log(f"[blocks] backward F={F}, semantic bench frame: {json.dumps(row)}")
+        # F = 4 and F = 27 on the same frame, in turns (4, 27, 27, 4)
+        _, state4 = tile_raster2._forward(*b_args[4])
+        out4 = tile_raster2.tile_blend_instances(*b_args[4])
+        gout4 = gout[..., :5].contiguous()
+        bwd4 = (*b_args[4][:3], out4, gout4, 4, gx, T)
+        fns = {("fwd", 4): lambda: tile_raster2.tile_blend_instances(*b_args[4]),
+               ("fwd", F): lambda: tile_raster2.tile_blend_instances(*b_args[F]),
+               ("bwd", 4): lambda: tile_raster2.tile_blend_bwd(*bwd4, state=state4),
+               ("bwd", F): lambda: tile_raster2.tile_blend_bwd(*bwd_args, state=state)}
+        turns = {k: [] for k in fns}
+        for kind in ("fwd", "bwd"):
+            for f in (4, F, F, 4):
+                turns[(kind, f)].append(cuda_ms(fns[(kind, f)], 10))
+        kms = {k: sum(v) / len(v) for k, v in turns.items()}
+        fwd_plain = cuda_ms(lambda: tile_raster2.tile_blend_plain(*b_args[F]), 1)
+        bwd_plain = cuda_ms(lambda: tile_raster2.tile_blend_bwd_plain(*bwd_args), 1)
+    live, evaluated, blended = int(live_mask.sum()), int(work["evaluated"]), int(work["blended"])
+    fwd_bound = bound(4 * (live * (6 + F) + T * 256 * (F + 1) + 2 * T), 17 * evaluated + (9 + 2 * F) * blended)
+    bwd_bound = bound(4 * (live * (6 + F) + 2 * T * 256 * (F + 1) + bi.payload.numel()),
+                      17 * evaluated + (47 + 6 * F) * blended)
+    log(f"[wide] {smi}: semantic bench frame ({T} tiles, {live} instances, {evaluated} pairs evaluated, {blended} "
+        f"blended), kernel ms in turns F=4/F={F}: forward {turns[('fwd', 4)]} / {turns[('fwd', F)]}, backward "
+        f"{turns[('bwd', 4)]} / {turns[('bwd', F)]}; F={F} bounds forward {fwd_bound}, backward {bwd_bound}; "
+        f"plain forward {fwd_plain:.3f} ms, backward {bwd_plain:.3f} ms")
+    out["f27"]["tile_blend_instances"] = {"ms": kms[("fwd", F)], "plain_ms": fwd_plain, "bound_ms": fwd_bound[0],
+                                          "bound_by": fwd_bound[1], "f4_ms_in_turns": kms[("fwd", 4)],
+                                          "path": "the semantic bench frame"}
+    out["f27"]["tile_blend_bwd"] = {"ms": kms[("bwd", F)], "plain_ms": bwd_plain, "bound_ms": bwd_bound[0],
+                                    "bound_by": bwd_bound[1], "f4_ms_in_turns": kms[("bwd", 4)],
+                                    "path": "the semantic bench frame, random cotangents"}
+    del bins, bi, b_args, b_out, state, state4, out4, gout, gout4, bwd_args, bwd4, fns, live_mask
+    torch.cuda.empty_cache()
+
+    # the table kernels at F = 4 and F = 27 on the random case, in turns
+    tk = {}
+    for f in (4, F):
+        case = random_table_case(5, dev, F=f)
+        payload, counts, _, gx_t = case
+        tout, twork = tile_raster.tile_blend_plain(*case, return_work=True)
+        tgout = torch.randn((counts.numel(), 256, f + 1), generator=torch.Generator(device=dev).manual_seed(f),
+                            device=dev)
+        tk[f] = dict(case=case, bwd=(payload, counts, tout, tgout, f, gx_t), work=twork)
+    tturns = {(k, f): [] for k in ("fwd", "bwd") for f in (4, F)}
+    for f in (4, F, F, 4):
+        tturns[("fwd", f)].append(cuda_ms(lambda: tile_raster.tile_blend(*tk[f]["case"]), 10))
+        tturns[("bwd", f)].append(cuda_ms(lambda: tile_raster.tile_blend_bwd(*tk[f]["bwd"]), 5))
+    for name, kind, fn_plain in (("tile_blend_table", "fwd", lambda: tile_raster.tile_blend_plain(*tk[F]["case"])),
+                                 ("tile_blend_table_bwd", "bwd",
+                                  lambda: tile_raster.tile_blend_bwd_plain(*tk[F]["bwd"]))):
+        payload, counts = tk[F]["case"][:2]
+        Tt, K = payload.shape[0], payload.shape[2]
+        n_live = int(torch.minimum(counts, torch.tensor(K, device=dev)).sum())
+        ev, bl = int(tk[F]["work"]["evaluated"]), int(tk[F]["work"]["blended"])
+        if kind == "fwd":
+            bnd = bound(4 * (n_live * (6 + F) + Tt * 256 * (F + 1) + Tt), 17 * ev + (6 + 2 * F) * bl)
+        else:
+            bnd = bound(4 * (n_live * (6 + F) + 2 * Tt * 256 * (F + 1) + Tt + payload.numel()),
+                        17 * ev + (44 + 6 * F) * bl)
+        ms = sum(tturns[(kind, F)]) / 2
+        out["f27"][name] = {"ms": ms, "plain_ms": cuda_ms(fn_plain, 1), "bound_ms": bnd[0], "bound_by": bnd[1],
+                            "f4_ms_in_turns": sum(tturns[(kind, 4)]) / 2,
+                            "path": "the random table case (1200 tiles, K=768)"}
+    log(f"[wide] {smi}: table kernels on the random case (1200 tiles, K=768), ms in turns F=4/F={F}: forward "
+        f"{tturns[('fwd', 4)]} / {tturns[('fwd', F)]}, backward {tturns[('bwd', 4)]} / {tturns[('bwd', F)]}")
+    del tk
+    torch.cuda.empty_cache()
+
+    # ms/view at F = 4 and F = 27, and at sky_downsample 1, 2 and 4, in turns
+    with torch.no_grad():
+        sky_table = build_sky_table(params.sky.cubemap)
+    variants = {"F=4": opts4, f"F={F}": opts[F],
+                **{f"sky_downsample={d}": dataclasses.replace(opts4, sky_downsample=d) for d in (1, 2, 4)}}
+    frames = scene.frames[:WIDE_VIEWS]
+    for o in variants.values():  # warm-up
+        serve.render_views(scene, params, frames[:1], o, device=dev, sky_table=sky_table)
+    torch.cuda.synchronize()
+    tile_raster2.tile_blend_instances.launches = 0
+    view_ms = {k: [] for k in variants}
+    names = list(variants)
+    for turn in range(WIDE_TURNS):
+        for name in (names if turn % 2 == 0 else names[::-1]):
+            for fr in frames:
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                (r,) = serve.render_views(scene, params, [fr], variants[name], device=dev, sky_table=sky_table)
+                e1.record()
+                torch.cuda.synchronize()
+                view_ms[name].append(e0.elapsed_time(e1))
+                if not all(torch.isfinite(v).all() for v in r.values() if torch.is_tensor(v) and v.is_floating_point()):
+                    raise AssertionError(f"semantic bench view, {name}: non-finite output")
+                if name == f"F={F}" and (tuple(r["semantic"].shape) != (H, W, SEM_CLASSES)
+                                         or tuple(r["normals"].shape) != (H, W, 3)):
+                    raise AssertionError(f"semantic bench view: semantic {tuple(r['semantic'].shape)}, "
+                                         f"normals {tuple(r['normals'].shape)}")
+    serve_launches = tile_raster2.tile_blend_instances.launches
+    if serve_launches != WIDE_TURNS * len(variants) * WIDE_VIEWS:
+        raise AssertionError(f"the semantic bench views launched tile_blend {serve_launches} times")
+    mean_ms = {k: sum(v) / len(v) for k, v in view_ms.items()}
+    log(f"[wide] {smi}: ms/view on the bench scene with semantics ({SEM_CLASSES} classes) in turns, "
+        f"{WIDE_TURNS} x {WIDE_VIEWS} views each: {json.dumps({k: round(v, 3) for k, v in mean_ms.items()})}")
+    out["numbers"]["ms_per_view"] = mean_ms
+    out["f27"]["tile_blend_instances"]["serve_launches"] = serve_launches
+    del scene, params, sky_table
+    torch.cuda.empty_cache()
+
+    # the small scene, card against CPU: semantics, normals, sky_downsample 4
+    o_small = dataclasses.replace(opts[F], sky_downsample=4)
+    small = []  # the card's render, then the CPU's
+    for d in (dev, torch.device("cpu")):
+        sc, pr = semantic_bench_scene(d, seed=3, sky_resolution=16, num_bkgd=600, num_actors=2, H=64, W=96)
+        small.append(serve.render_views(sc, pr, sc.frames[5:6], o_small, device=d)[0])
+    for k in ("rgb", "depth", "acc", "T", "semantic", "normals"):
+        e = float((small[0][k].cpu() - small[1][k]).abs().max())
+        if not e <= 1e-4:
+            raise AssertionError(f"small semantic render {k}: card vs CPU max abs err {e}")
+    log(f"[check] small render (64x96, 2 actors, sky, {SEM_CLASSES} classes, normals, sky_downsample 4): card "
+        f"within 1e-4 of the CPU")
+    del small
+
+    # ---- 10c. a runner session with semantics and normals, across the gate ----
+    recipe = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "example", "waymo_train_002.yaml")
+    model_path = os.path.join(tmp, "wide")
+    run_opts = ["source_path", root, "model_path", model_path, "data.selected_frames", f"[0, {SEQ_FRAMES - 1}]",
+                "data.use_tracker", "false", "data.use_semantic", "true", "data.num_classes", str(SEM_CLASSES),
+                "render.render_normal", "true", "render.instance_capacity", str(WIDE_CAPACITY),
+                "train.test_iterations", "[]", "train.save_iterations", f"[{WIDE_ITERS}]",
+                "train.checkpoint_iterations", f"[{WIDE_ITERS}]", "optim.densify_from_iter", "1000",
+                "optim.densify_until_iter", str(WIDE_GATE), "train.iterations", str(WIDE_ITERS)]
+    argv = ["--config", recipe, "--device", dev.type, *run_opts]
+    recs = {}
+    make_step = runner.make_train_step
+    # the inputs of the step from state.step == WIDE_GATE: the first with the object render
+    runner.make_train_step = recording_make_step(make_step, WIDE_GATE, recs)
+    counted = (fill.expand_runs, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd, segsum.segment_rowsum)
+    for k in counted:
+        k.launches = 0
+    np.random.seed(0)
+    t0 = time.perf_counter()
+    try:
+        train_cli.main(argv)
+    finally:
+        runner.make_train_step = make_step
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    run_launches = {k.__name__: k.launches for k in counted}
+    with open(os.path.join(model_path, "record", "train_log.jsonl")) as fh:
+        steps = [r for r in map(json.loads, fh) if "loss" in r]
+    if [r["iteration"] for r in steps] != list(range(10, WIDE_ITERS + 1, 10)) or not all(
+            math.isfinite(r["loss"]) for r in steps) or "obj_acc_loss" not in steps[-1]:
+        raise AssertionError(f"wide runner: records {steps}")
+    # the full render every step, the object render from the gate on
+    want_fwd = WIDE_ITERS + (WIDE_ITERS - WIDE_GATE)
+    if run_launches["tile_blend_instances"] != want_fwd or run_launches["tile_blend_bwd"] != want_fwd:
+        raise AssertionError(f"wide runner launches {run_launches}, expected {want_fwd} blends")
+    ply_path = os.path.join(model_path, "point_cloud", f"iteration_{WIDE_ITERS}", "point_cloud.ply")
+    with open(ply_path, "rb") as fh:
+        header = fh.read(1 << 16).split(b"end_header")[0].decode()
+    if f"semantic_{SEM_CLASSES - 1}" not in header or f"semantic_{SEM_CLASSES}" in header:
+        raise AssertionError("wide runner: the PLY does not hold the semantic columns")
+    log(f"[wide] {smi}: runner session with semantics and normals, {WIDE_ITERS} iterations across "
+        f"densify_until_iter {WIDE_GATE} in {t_run:.2f} s; losses {[round(r['loss'], 5) for r in steps]}; "
+        f"launches {run_launches}; the PLY has {SEM_CLASSES} semantic columns")
+    out["f27"]["tile_blend_instances"]["launches"] = run_launches["tile_blend_instances"]
+    out["f27"]["tile_blend_bwd"]["launches"] = run_launches["tile_blend_bwd"]
+    out["numbers"]["runner_launches"] = run_launches
+    out["numbers"]["runner_s"] = t_run
+
+    # its train step at F = 4 and F = 27 on the same views, in turns
+    cfg = load_config(recipe, run_opts, "train")
+    np.random.seed(0)
+    tscene = runner.build_trained_scene(cfg, dev)
+    for k, v in gate_step_checks(recs, tscene.table.capacity, f"F={F} iteration {WIDE_GATE + 1}").items():
+        err[k] = max(err.get(k, 0.0), v)
+    recs.clear()
+    template = init_train_state(runner.build_initial_params(cfg, tscene, dev), tscene.aux_init)
+    st, _ = checkpoint.load_train_state(cfg.trained_model_dir, template, WIDE_ITERS)
+    del template
+    H_seq, W_seq = tscene.train_views[0].H, tscene.train_views[0].W
+    o27 = runner.render_opts_from_cfg(cfg, "train")
+    o4 = dataclasses.replace(o27, use_semantic=False, render_normal=False)
+    step_fns = {4: make_train_step(cfg, tscene.table, tscene.pose_data, o4),
+                F: make_train_step(cfg, tscene.table, tscene.pose_data, o27)}
+    views = tscene.train_views[:WIDE_VIEWS]
+    gts = [load_ground_truth(v, device=dev) for v in views]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    C = tscene.table.capacity
+    draws = [Draws(torch.rand(C, generator=gen, device=dev) < 0.5,
+                   torch.rand((v.H, v.W, 2), generator=gen, device=dev) - 0.5) for v in views]
+    step_ms = {4: [], F: []}
+    for j in range(len(views) + 1):  # the first pair warms up
+        for f in ((4, F) if j % 2 == 0 else (F, 4)):
+            i = j % len(views)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            _, sc = step_fns[f](st, views[i].frame_input, gts[i], draws=draws[i])
+            e1.record()
+            torch.cuda.synchronize()
+            if j:
+                step_ms[f].append(e0.elapsed_time(e1))
+            if not math.isfinite(float(sc["loss"])):
+                raise AssertionError(f"wide train step F={f}: loss {float(sc['loss'])}")
+    ms_step = {f"F={f}": sum(v) / len(v) for f, v in step_ms.items()}
+    log(f"[wide] {smi}: train ms/step after the gate on {len(views)} views in turns: "
+        f"{json.dumps({k: round(v, 3) for k, v in ms_step.items()})}")
+    out["numbers"]["ms_per_step"] = ms_step
+    del st, step_fns, gts, draws, tscene
+    torch.cuda.empty_cache()
+
+    # render --mode trajectory: camera 0, the sky on a 1/4 ray grid, no videos
+    log("[wide] render --mode trajectory with render.concat_cameras [0], render.sky_downsample 4 and "
+        "render.save_video false (the card's machine is not known to have OpenCV)")
+    add = visualize.Visualizer.add
+    nonfinite = []
+
+    def checked_add(self, name, image_name, img):
+        if not np.isfinite(img).all():
+            nonfinite.append(f"{image_name}_{name}")
+        return add(self, name, image_name, img)
+
+    visualize.Visualizer.add = checked_add
+    t0 = time.perf_counter()
+    try:
+        traj = render_cli.main(["--config", recipe, "--device", dev.type, "--mode", "trajectory", *run_opts,
+                                "render.concat_cameras", "[0]", "render.sky_downsample", "4",
+                                "render.save_video", "false"])
+    finally:
+        visualize.Visualizer.add = add
+    t_traj = time.perf_counter() - t0
+    files = sorted(os.listdir(traj["out_dir"]))
+    want = sorted(f"{i:06d}_0_{c}.png" for i in range(SEQ_FRAMES)
+                  for c in ("rgb", "object", "background", "depth", "acc"))
+    if nonfinite or traj["num_frames"] != SEQ_FRAMES or files != want:
+        raise AssertionError(f"trajectory: {traj['num_frames']} frames, non-finite {nonfinite}, files {files}")
+    shapes = {imread(os.path.join(traj["out_dir"], f)).shape for f in files}
+    if shapes != {(H_seq, W_seq, 3)}:
+        raise AssertionError(f"trajectory PNG shapes {shapes}")
+    log(f"[wide] trajectory: {traj['num_frames']} frames x 5 channels written, all finite, in {t_traj:.2f} s")
+    out["numbers"]["trajectory_s"] = t_traj
+
+    # ---- 10d. LPIPS at 1600x1067 on weights from a seed, card against CPU ----
+    rng = np.random.default_rng(LPIPS_SEED)
+    pred = rng.random((H_seq, W_seq, 3)).astype(np.float32)
+    gt = np.clip(pred + 0.1 * rng.standard_normal(pred.shape), 0, 1).astype(np.float32)
+    lp = {}
+    for net, size in (("alex", (H_seq, W_seq)), ("vgg", (256, 384))):
+        w = lpips_seeded_weights(net, LPIPS_SEED)
+        p, g = pred[:size[0], :size[1]], gt[:size[0], :size[1]]
+        card = float(lpips_lib.lpips_from_weights(torch.as_tensor(p, device=dev), torch.as_tensor(g, device=dev),
+                                                  w, net))
+        cpu = float(lpips_lib.lpips_from_weights(torch.as_tensor(p), torch.as_tensor(g), w, net))
+        if not (math.isfinite(card) and abs(card - cpu) <= 1e-4 * abs(cpu)):
+            raise AssertionError(f"LPIPS {net}: card {card} vs CPU {cpu}")
+        lp[net] = {"card": card, "cpu": cpu, "size": list(size)}
+    log(f"[wide] LPIPS on weights from seed {LPIPS_SEED}, card against CPU (rtol 1e-4): {json.dumps(lp)}")
+    out["numbers"]["lpips"] = lp
+    out["errors"] = err
+    return out
+
+
+def lpips_seeded_weights(net_type: str, seed: int) -> dict:
+    """LPIPS weights of the net's shapes from a seed: convs N(0, 0.05),
+    lin weights |N(0, 1)| (tests/test_lpips.py's recipe)."""
+    from street_gaussians_torch.utils import lpips as lpips_lib
+
+    rng = np.random.default_rng(seed)
+    arch, _ = lpips_lib._arch(net_type)
+    channels = lpips_lib._ALEX_CHANNELS if net_type == "alex" else lpips_lib._VGG_CHANNELS
+    w, in_ch, i = {}, 3, 0
+    for layer in arch:
+        if layer[0] == "conv":
+            _, out_ch, k, _, _ = layer
+            w[f"conv{i}.weight"] = (rng.standard_normal((out_ch, in_ch, k, k)) * 0.05).astype(np.float32)
+            w[f"conv{i}.bias"] = (rng.standard_normal(out_ch) * 0.05).astype(np.float32)
+            in_ch, i = out_ch, i + 1
+    for li, ch in enumerate(channels):
+        w[f"lin{li}.weight"] = np.abs(rng.standard_normal((1, ch, 1, 1))).astype(np.float32)
+    return w
+
+
+def recording_make_step(make_step, at_step: int, recs: dict):
+    """A stand-in for runner.make_train_step whose step fns, in the step
+    from state.step == at_step, record the four main-path kernels'
+    inputs into `recs` (CallRecorders, for gate_step_checks); every step
+    fn the runner builds (again after a growth) is wrapped."""
+    from street_gaussians_torch.models import sky_cubemap
+    from street_gaussians_torch.ops import fill, rasterize, segsum, tile_raster2
+
+    def recording(*a, **kw):
+        step_fn = make_step(*a, **kw)
+
+        def step(state, *args, **kwargs):
+            if state.step != at_step:
+                return step_fn(state, *args, **kwargs)
+            recs.update({"expand_runs": CallRecorder(fill.expand_runs, [fill]),
+                         "forward": CallRecorder(tile_raster2._forward, [tile_raster2]),
+                         "tile_blend_bwd": CallRecorder(tile_raster2.tile_blend_bwd, [tile_raster2]),
+                         "segment_rowsum": CallRecorder(segsum.segment_rowsum, [rasterize, sky_cubemap])})
+            try:
+                return step_fn(state, *args, **kwargs)
+            finally:
+                for rec in recs.values():
+                    rec.restore()
+
+        return step
+
+    return recording
 
 
 def small_runner_check(dev, iterations: int = 20):

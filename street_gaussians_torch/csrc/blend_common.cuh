@@ -97,6 +97,28 @@ __device__ inline Gauss load_gauss(const float* sm, int l) {
   return {a.x, a.y, a.z, a.w, b.x, b.y};
 }
 
+// ---- feature counts above the instantiated ones ----
+// The kernels are instantiated for F = 1..MAX_FIXED_F; a wider F (up to
+// MAX_F) takes kernels with F a runtime count, whose per-feature state
+// lives in shared memory instead of registers (tile_blend.cu,
+// tile_blend_bwd.cu). The same layout as Rows<F>, with the row pitch
+// computed at run time.
+constexpr int MAX_FIXED_F = 8;
+constexpr int MAX_F = 64;
+
+__host__ __device__ inline int wide_rp(int F) { return (HEADER + F + 3) / 4 * 4; }
+
+__device__ inline void stage_block_wide(float* sm, const float* __restrict__ blk, int F) {
+  const int rows = HEADER + F, rp = wide_rp(F);
+  for (int i = threadIdx.x; i < rows * CHUNK; i += PIX) sm[(i % CHUNK) * rp + i / CHUNK] = blk[i];
+}
+
+__device__ inline Gauss load_gauss_wide(const float* sm, int l, int rp) {
+  const float4 a = *reinterpret_cast<const float4*>(sm + l * rp);
+  const float2 b = *reinterpret_cast<const float2*>(sm + l * rp + 4);
+  return {a.x, a.y, a.z, a.w, b.x, b.y};
+}
+
 struct Alpha {
   float dx, dy, apow, alpha_raw, alpha;
   bool pass;

@@ -48,6 +48,10 @@
 // segment without stopping leaves it with exactly the value the next
 // segment enters with (entering_log_t groups the blocks' sums as the
 // walk does), so the segments agree on where a pixel stopped.
+// 3. F up to 8 is instantiated (accumulators in registers); F from 9 to
+//    MAX_F (semantics and normals: 27 at 20 classes) runs
+//    blend_items_wide_kernel and combine_wide_kernel, F a runtime count
+//    (see there).
 // Compiled with -fmad=false so each product and sum rounds on its own.
 #include "blend_common.cuh"
 
@@ -315,6 +319,160 @@ __global__ void __launch_bounds__(PIX)
   for (int c = 0; c <= F; ++c) o[c] = acc[c];
 }
 
+// ---- F above MAX_FIXED_F: the same walk, F a runtime count ----
+//
+// The register accumulators of blend_items_kernel grow with F (27 for
+// semantics at 20 classes with normals, up to MAX_F), past what a thread
+// of a block that several share an SM can hold. Here they live in
+// dynamic shared memory, feature-major ([F][256], each pixel its own
+// column: no bank conflict, no barrier), after the staged payload block
+// ([128][wide_rp(F)]). The lane walk is the same, and alpha and T still
+// do not depend on F, so the run is walked once: the walk keeps the
+// batch's BATCH weights in registers, and after the batch each feature
+// adds them in lane order, accum[f] += w_j * feat_j[f] for j = 0..7:
+// every accumulator sees the sums of the instantiated kernel in the same
+// order. The first pass reads the header alone and is the instantiated
+// block_sums_kernel (its staging rows beyond the header are never read).
+__global__ void __launch_bounds__(PIX, 2)
+    blend_items_wide_kernel(const float* __restrict__ payload, const int* __restrict__ tile_start,
+                            const int* __restrict__ tile_count, const int* __restrict__ plan_data,
+                            int num_tiles, int max_items, int seg_blocks,
+                            const float* __restrict__ blocklog, float* __restrict__ part,
+                            float* __restrict__ out, int grid_x, int c_pad, int F) {
+  extern __shared__ __align__(16) float wsm[];
+  const int rp = wide_rp(F);
+  float* sm = wsm;                 // [128][rp] the payload block, lane-major
+  float* accum = wsm + CHUNK * rp;  // [F][256]
+
+  const Plan plan(plan_data, num_tiles, max_items);
+  if ((int)blockIdx.x >= plan.n[out == nullptr ? 0 : 1]) return;
+  const Item it(plan, blockIdx.x, tile_start, tile_count, seg_blocks);
+  BlockTimer timer(2);
+  const int p = threadIdx.x;
+  const float px = (float)((it.tile % grid_x) * TILE + p % TILE);
+  const float py = (float)((it.tile / grid_x) * TILE + p / TILE);
+
+  const float base =
+      it.slot0 >= 0 ? entering_log_t(blocklog, it.b0, it.b_first, seg_blocks, p) : 0.0f;
+  const bool entered = base >= LOG_T_EPS;
+  bool done = !entered;
+  for (int f = 0; f < F; ++f) accum[f * PIX + p] = 0.0f;
+  float segcum = 0.0f;
+
+  if (__syncthreads_count(done) < PIX) {
+    for (int b = it.b_first; b < it.b_stop; ++b) {
+      stage_block_wide(sm, payload + (size_t)b * c_pad * CHUNK, F);
+      __syncthreads();
+      if (!__all_sync(FULL, done)) {
+        const int lo = max(it.start - b * CHUNK, 0);
+        const int hi = min(it.end - b * CHUNK, CHUNK);
+        float cum = 0.0f;
+        float blended = 0.0f;
+        for (int l0 = lo & ~(BATCH - 1); l0 < hi; l0 += BATCH) {
+          float alpha[BATCH];
+          unsigned pass = 0;
+#pragma unroll
+          for (int j = 0; j < BATCH; ++j) {
+            const Alpha a = eval_alpha(load_gauss_wide(sm, l0 + j, rp), px, py);
+            alpha[j] = a.alpha;
+            if (a.pass && l0 + j >= lo && l0 + j < hi) pass |= 1u << j;
+          }
+          if (done) pass = 0;
+          if (!__any_sync(FULL, pass != 0)) continue;
+          float w[BATCH];
+          unsigned blend = 0;
+#pragma unroll
+          for (int j = 0; j < BATCH; ++j) {
+            w[j] = 0.0f;
+            if (pass >> j & 1) {
+              const float lg = log1pf(-alpha[j]);
+              cum += lg;
+              const float v = base + (segcum + cum);
+              if (!(v >= LOG_T_EPS)) {
+                done = true;
+                pass = 0;
+              } else {
+                w[j] = alpha[j] * expf(v - lg);
+                blend |= 1u << j;
+                blended += lg;
+              }
+            }
+          }
+          if (blend) {
+            const float* feat = sm + l0 * rp + HEADER;
+            for (int f = 0; f < F; ++f) {
+              float a = accum[f * PIX + p];
+#pragma unroll
+              for (int j = 0; j < BATCH; ++j) {
+                if (blend >> j & 1) a += w[j] * feat[j * rp + f];
+              }
+              accum[f * PIX + p] = a;
+            }
+          }
+        }
+        segcum += blended;
+      }
+      if (__syncthreads_count(done) == PIX) break;
+    }
+  }
+
+  const float t_final = (entered && (done || it.last)) ? expf(base + segcum) : 0.0f;
+  float* o = it.slot0 >= 0 ? part + ((size_t)(it.slot0 + it.seg) * PIX + p) * (F + 1)
+                           : out + ((size_t)it.tile * PIX + p) * (F + 1);
+  for (int f = 0; f < F; ++f) o[f] = accum[f * PIX + p];
+  o[F] = t_final;
+}
+
+// combine_kernel with F a runtime count: each channel's partials added in
+// segment order, as there
+__global__ void __launch_bounds__(PIX)
+    combine_wide_kernel(const int* __restrict__ tile_start, const int* __restrict__ tile_count,
+                        const int* __restrict__ plan_data, int num_tiles, int max_items,
+                        int seg_blocks, const float* __restrict__ part, float* __restrict__ out,
+                        int F) {
+  const Plan plan(plan_data, num_tiles, max_items);
+  const int t = blockIdx.x, p = threadIdx.x;
+  const int slot0 = plan.tile_slot[t];
+  if (slot0 < 0) return;
+  BlockTimer timer(3);
+  const int nseg = (run_blocks(tile_start[t], tile_count[t]) + seg_blocks - 1) / seg_blocks;
+  float* o = out + ((size_t)t * PIX + p) * (F + 1);
+  for (int c = 0; c <= F; ++c) {
+    float acc = 0.0f;
+    for (int k = 0; k < nseg; ++k) acc += part[((size_t)(slot0 + k) * PIX + p) * (F + 1) + c];
+    o[c] = acc;
+  }
+}
+
+size_t wide_fwd_smem(int F) { return (size_t)(CHUNK * wide_rp(F) + F * PIX) * sizeof(float); }
+
+int launch_wide(const float* payload, const int* tile_start, const int* tile_count, int* plan,
+                float* blocklog, float* part, float* out, int num_tiles, int grid_x, int c_pad,
+                int F, int seg_blocks, int max_long, int max_items, cudaStream_t stream) {
+  plan_kernel<<<1, PLAN_THREADS, 0, stream>>>(tile_start, tile_count, num_tiles, seg_blocks,
+                                              max_items, plan);
+  if (max_long > 0) {
+    // the header alone: any instantiation's first pass gives these sums
+    block_sums_kernel<2><<<max_long * seg_blocks, PIX, 0, stream>>>(
+        payload, tile_start, tile_count, plan, num_tiles, max_items, seg_blocks, blocklog,
+        grid_x, c_pad);
+  }
+  if (out || max_long > 0) {
+    const size_t bytes = wide_fwd_smem(F);
+    cudaError_t err = cudaFuncSetAttribute(
+        blend_items_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    blend_items_wide_kernel<<<out ? max_items : max_long, PIX, bytes, stream>>>(
+        payload, tile_start, tile_count, plan, num_tiles, max_items, seg_blocks, blocklog, part,
+        out, grid_x, c_pad, F);
+  }
+  if (out && max_long > 0) {
+    combine_wide_kernel<<<num_tiles, PIX, 0, stream>>>(tile_start, tile_count, plan, num_tiles,
+                                                       max_items, seg_blocks, part, out, F);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <int F>
 int launch(const float* payload, const int* tile_start, const int* tile_count, int* plan,
            float* blocklog, float* part, float* out, int num_tiles, int grid_x, int c_pad,
@@ -341,7 +499,8 @@ int launch(const float* payload, const int* tile_start, const int* tile_count, i
 
 }  // namespace
 
-// F = 1..8 blend features; the wrapper rejects other counts. Writes the
+// F = 1..MAX_F blend features (1..8 instantiated, wider counts through
+// launch_wide); the wrapper rejects other counts. Writes the
 // work list `plan` (2 + num_tiles + 2 * max_items ints), the long tiles'
 // boundary state `blocklog` [payload blocks, 256] (only the blocks of
 // their segments but the last are written) and `part` [max_long, 256,
@@ -370,6 +529,10 @@ extern "C" int tile_blend_fwd(const float* payload, const int* tile_start,
     SG_CASE(7)
     SG_CASE(8)
     default:
+      if (num_features > MAX_FIXED_F && num_features <= MAX_F) {
+        return launch_wide(payload, tile_start, tile_count, plan, blocklog, part, out, num_tiles,
+                           grid_x, c_pad, num_features, seg_blocks, max_long, max_items, s);
+      }
       return (int)cudaErrorInvalidValue;
   }
 #undef SG_CASE
@@ -386,17 +549,52 @@ extern "C" int tile_blend_plan(const int* tile_start, const int* tile_count, int
 }
 
 #ifdef SG_BLOCK_TIMES
-// blocks of each launch ("region" of the time buffer) an SM holds at once
-extern "C" int sg_blocks_per_sm(int region, int num_features) {
+namespace {
+template <int F>
+int fixed_blocks_per_sm(int region) {
   int n = 0;
-  if (num_features != 4) return -1;
   switch (region) {
-    case 0: cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, plan_kernel, PLAN_THREADS, 0); break;
-    case 1: cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, block_sums_kernel<4>, PIX, 0); break;
-    case 2: cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, blend_items_kernel<4>, PIX, 0); break;
-    case 3: cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, combine_kernel<4>, PIX, 0); break;
+    case 1: cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, block_sums_kernel<F>, PIX, 0); break;
+    case 2: cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, blend_items_kernel<F>, PIX, 0); break;
+    case 3: cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, combine_kernel<F>, PIX, 0); break;
     default: return -1;
   }
   return n;
+}
+}  // namespace
+
+// blocks of each launch ("region" of the time buffer) an SM holds at once
+// at num_features features
+extern "C" int sg_blocks_per_sm(int region, int num_features) {
+  int n = 0;
+  if (num_features < 1 || num_features > MAX_F) return -1;
+  if (region == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, plan_kernel, PLAN_THREADS, 0);
+    return n;
+  }
+  if (num_features > MAX_FIXED_F) {
+    switch (region) {
+      case 1: return fixed_blocks_per_sm<2>(1);
+      case 2: {
+        const size_t bytes = wide_fwd_smem(num_features);
+        cudaFuncSetAttribute(blend_items_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, blend_items_wide_kernel, PIX, bytes);
+        return n;
+      }
+      case 3: cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, combine_wide_kernel, PIX, 0); return n;
+      default: return -1;
+    }
+  }
+  switch (num_features) {
+    case 1: return fixed_blocks_per_sm<1>(region);
+    case 2: return fixed_blocks_per_sm<2>(region);
+    case 3: return fixed_blocks_per_sm<3>(region);
+    case 4: return fixed_blocks_per_sm<4>(region);
+    case 5: return fixed_blocks_per_sm<5>(region);
+    case 6: return fixed_blocks_per_sm<6>(region);
+    case 7: return fixed_blocks_per_sm<7>(region);
+    default: return fixed_blocks_per_sm<8>(region);
+  }
 }
 #endif

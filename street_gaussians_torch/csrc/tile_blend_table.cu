@@ -98,6 +98,82 @@ __global__ void __launch_bounds__(PIX)
   o[F] = T;
 }
 
+// F above MAX_FIXED_F: the same walk with F a runtime count; the
+// chunk's rows and the accumulators ([F][256], each pixel its own column)
+// in dynamic shared memory. Each accumulator takes the same sums in the
+// same order as the instantiated kernel's registers.
+constexpr int MAX_FIXED_F = 8;
+constexpr int MAX_F = 64;
+
+size_t wide_smem(int F) { return (size_t)((HEADER + F) * CHUNK + F * PIX) * sizeof(float); }
+
+__global__ void __launch_bounds__(PIX)
+    tile_blend_table_fwd_wide_kernel(const float* __restrict__ payload,
+                                     const int* __restrict__ tile_count,
+                                     float* __restrict__ out, int grid_x, int c_pad, int K,
+                                     int F) {
+  const int ROWS = HEADER + F;
+  extern __shared__ float wsm[];
+  float* rows = wsm;                   // [ROWS][CHUNK]
+  float* accum = wsm + ROWS * CHUNK;   // [F][PIX]
+
+  const int t = blockIdx.x;
+  const int p = threadIdx.x;
+  const float px = (float)((t % grid_x) * TILE + p % TILE);
+  const float py = (float)((t / grid_x) * TILE + p / TILE);
+  const float* table = payload + (size_t)t * c_pad * K;
+  const int nchunks = min((tile_count[t] + CHUNK - 1) / CHUNK, K / CHUNK);
+
+  for (int f = 0; f < F; ++f) accum[f * PIX + p] = 0.0f;
+  float T = 1.0f;
+  int done = 0;
+
+  for (int i = 0; i < nchunks; ++i) {
+    for (int j = p; j < ROWS * CHUNK; j += PIX) {
+      rows[j] = table[(size_t)(j / CHUNK) * K + i * CHUNK + j % CHUNK];
+    }
+    __syncthreads();
+    if (!done) {
+      float cp = 1.0f;
+      for (int l = 0; l < CHUNK; ++l) {
+        const float dx = rows[0 * CHUNK + l] - px;
+        const float dy = rows[1 * CHUNK + l] - py;
+        const float power =
+            -0.5f * (rows[2 * CHUNK + l] * dx * dx + rows[4 * CHUNK + l] * dy * dy) -
+            rows[3 * CHUNK + l] * dx * dy;
+        const float alpha =
+            fminf(ALPHA_MAX, rows[5 * CHUNK + l] * expf(fminf(power, 0.0f)));
+        if (!(power <= 0.0f) || !(alpha >= ALPHA_MIN)) continue;
+        const float cp_incl = cp * (1.0f - alpha);
+        if (T * cp_incl < T_EPS) {
+          done = 1;
+          break;
+        }
+        const float w = alpha * T * cp;
+        for (int f = 0; f < F; ++f) accum[f * PIX + p] += w * rows[(HEADER + f) * CHUNK + l];
+        cp = cp_incl;
+      }
+      T = T * cp;
+    }
+    if (__syncthreads_count(done) == PIX) break;
+  }
+
+  float* o = out + ((size_t)t * PIX + p) * (F + 1);
+  for (int f = 0; f < F; ++f) o[f] = accum[f * PIX + p];
+  o[F] = T;
+}
+
+int launch_wide(const float* payload, const int* tile_count, float* out, int num_tiles,
+                int grid_x, int c_pad, int K, int F, cudaStream_t stream) {
+  const size_t bytes = wide_smem(F);
+  cudaError_t err = cudaFuncSetAttribute(tile_blend_table_fwd_wide_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  tile_blend_table_fwd_wide_kernel<<<num_tiles, PIX, bytes, stream>>>(payload, tile_count, out,
+                                                                     grid_x, c_pad, K, F);
+  return (int)cudaGetLastError();
+}
+
 template <int F>
 int launch(const float* payload, const int* tile_count, float* out,
            int num_tiles, int grid_x, int c_pad, int K, cudaStream_t stream) {
@@ -108,8 +184,8 @@ int launch(const float* payload, const int* tile_count, float* out,
 
 }  // namespace
 
-// F = 1..8 blend features and K a multiple of 128; the wrapper rejects
-// anything else.
+// F = 1..MAX_F blend features (1..8 instantiated, wider counts through
+// launch_wide) and K a multiple of 128; the wrapper rejects anything else.
 extern "C" int tile_blend_table_fwd(const float* payload, const int* tile_count,
                                     float* out, int num_tiles, int grid_x,
                                     int c_pad, int K, int num_features,
@@ -129,6 +205,9 @@ extern "C" int tile_blend_table_fwd(const float* payload, const int* tile_count,
     SG_CASE(7)
     SG_CASE(8)
     default:
+      if (num_features > MAX_FIXED_F && num_features <= MAX_F) {
+        return launch_wide(payload, tile_count, out, num_tiles, grid_x, c_pad, K, num_features, s);
+      }
       return (int)cudaErrorInvalidValue;
   }
 #undef SG_CASE

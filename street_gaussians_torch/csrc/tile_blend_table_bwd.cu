@@ -169,6 +169,166 @@ __global__ void __launch_bounds__(PIX)
   }
 }
 
+// F above MAX_FIXED_F: F a runtime count. The per-lane values of the
+// 8 + F rows no longer fit in registers: the eight rows that do not
+// depend on F stay there, and each feature row g[f] * w is formed and
+// reduced one at a time from the cotangents in shared memory ([F][256]);
+// the chunk's rows and the warps' partials ([WARPS][8 + F][SUB]) are in
+// dynamic shared memory too. Every row goes through the same shuffle
+// tree and the same warp order as in the instantiated kernel.
+constexpr int MAX_FIXED_F = 8;
+constexpr int MAX_F = 64;
+
+size_t wide_smem(int F) {
+  return (size_t)((HEADER + F) * CHUNK + F * PIX + WARPS * (HEADER + F + 2) * SUB) * sizeof(float);
+}
+
+__device__ inline float warp_tree(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(FULL, v, off);
+  return v;
+}
+
+__global__ void __launch_bounds__(PIX)
+    tile_blend_table_bwd_wide_kernel(const float* __restrict__ payload,
+                                     const int* __restrict__ tile_count,
+                                     const float* __restrict__ out,
+                                     const float* __restrict__ gout,
+                                     float* __restrict__ d_payload, int grid_x, int c_pad,
+                                     int K, int F) {
+  const int ROWS = HEADER + F;
+  const int NG = HEADER + F + 2;
+  extern __shared__ float wsm[];
+  float* rows = wsm;                  // [ROWS][CHUNK]
+  float* gs = rows + ROWS * CHUNK;    // [F][PIX]
+  float* part = gs + F * PIX;         // [WARPS][NG][SUB]
+
+  const int t = blockIdx.x;
+  const int p = threadIdx.x;
+  const int warp = p / 32;
+  const int wl = p % 32;
+  const float px = (float)((t % grid_x) * TILE + p % TILE);
+  const float py = (float)((t / grid_x) * TILE + p / TILE);
+  const float* table = payload + (size_t)t * c_pad * K;
+  float* d_table = d_payload + (size_t)t * c_pad * K;
+  const int nchunks = min((tile_count[t] + CHUNK - 1) / CHUNK, K / CHUNK);
+
+  const float* o = out + ((size_t)t * PIX + p) * (F + 1);
+  const float* go = gout + ((size_t)t * PIX + p) * (F + 1);
+  float s_total = 0.0f;
+  for (int f = 0; f < F; ++f) {
+    const float g = go[f];
+    gs[f * PIX + p] = g;
+    s_total += g * o[f];
+  }
+  const float gt_tfin = go[F] * o[F];
+
+  float T = 1.0f;
+  float u_prev = 0.0f;
+  int done = 0;
+
+  for (int i = 0; i < nchunks; ++i) {
+    for (int j = p; j < ROWS * CHUNK; j += PIX) {
+      rows[j] = table[(size_t)(j / CHUNK) * K + i * CHUNK + j % CHUNK];
+    }
+    __syncthreads();
+    float cp = 1.0f;
+    float cu = 0.0f;
+    for (int l0 = 0; l0 < CHUNK; l0 += SUB) {
+      for (int k = 0; k < SUB; ++k) {
+        const int l = l0 + k;
+        float v[HEADER + 2];
+#pragma unroll
+        for (int c = 0; c < HEADER + 2; ++c) v[c] = 0.0f;
+        float w = 0.0f;
+        bool hit = false;
+        if (!done) {
+          const float dx = rows[0 * CHUNK + l] - px;
+          const float dy = rows[1 * CHUNK + l] - py;
+          const float ca = rows[2 * CHUNK + l], cb = rows[3 * CHUNK + l], cc = rows[4 * CHUNK + l];
+          const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
+          const float apow = expf(fminf(power, 0.0f));
+          const float alpha_raw = rows[5 * CHUNK + l] * apow;
+          const float alpha = fminf(ALPHA_MAX, alpha_raw);
+          if (power <= 0.0f && alpha >= ALPHA_MIN) {
+            const float om = 1.0f - alpha;
+            const float cp_incl = cp * om;
+            if (T * cp_incl < T_EPS) {
+              done = 1;
+            } else {
+              hit = true;
+              const float tprefix = T * cp;
+              w = alpha * tprefix;
+              float phi = 0.0f;
+              for (int f = 0; f < F; ++f) phi += gs[f * PIX + p] * rows[(HEADER + f) * CHUNK + l];
+              const float u = w * phi;
+              cu += u;
+              const float suffix = s_total - (cu + u_prev);
+              const float da = tprefix * phi - (suffix + gt_tfin) / om;
+              const float da_eff = alpha_raw <= ALPHA_MAX ? da : 0.0f;
+              const float dpow = alpha_raw * da_eff;
+              const float gmx = ca * dx + cb * dy;
+              const float gmy = cc * dy + cb * dx;
+              v[0] = -gmx * dpow;
+              v[1] = -gmy * dpow;
+              v[2] = -0.5f * dx * dx * dpow;
+              v[3] = -dx * dy * dpow;
+              v[4] = -0.5f * dy * dy * dpow;
+              v[5] = apow * da_eff;
+              v[HEADER] = fabsf(gmx * dpow);
+              v[HEADER + 1] = fabsf(gmy * dpow);
+              cp = cp_incl;
+            }
+          }
+        }
+        float* pw = part + (size_t)warp * NG * SUB + k;  // this warp's row 0, lane k
+        if (__any_sync(FULL, hit)) {
+#pragma unroll
+          for (int c = 0; c < HEADER; ++c) {
+            const float s = warp_tree(v[c]);
+            if (wl == 0) pw[c * SUB] = s;
+          }
+          for (int f = 0; f < F; ++f) {
+            const float s = warp_tree(hit ? gs[f * PIX + p] * w : 0.0f);
+            if (wl == 0) pw[(HEADER + f) * SUB] = s;
+          }
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float s = warp_tree(v[HEADER + c]);
+            if (wl == 0) pw[(HEADER + F + c) * SUB] = s;
+          }
+        } else if (wl == 0) {
+          for (int c = 0; c < NG; ++c) pw[c * SUB] = 0.0f;
+        }
+      }
+      __syncthreads();
+      for (int j = p; j < NG * SUB; j += PIX) {
+        const int c = j / SUB;
+        const int k = j % SUB;
+        float s = part[c * SUB + k];
+        for (int wi = 1; wi < WARPS; ++wi) s += part[((size_t)wi * NG + c) * SUB + k];
+        d_table[(size_t)c * K + i * CHUNK + l0 + k] = s;
+      }
+      __syncthreads();
+    }
+    T = T * cp;
+    u_prev += cu;
+    if (__syncthreads_count(done) == PIX) break;
+  }
+}
+
+int launch_wide(const float* payload, const int* tile_count, const float* out, const float* gout,
+                float* d_payload, int num_tiles, int grid_x, int c_pad, int K, int F,
+                cudaStream_t stream) {
+  const size_t bytes = wide_smem(F);
+  cudaError_t err = cudaFuncSetAttribute(tile_blend_table_bwd_wide_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  tile_blend_table_bwd_wide_kernel<<<num_tiles, PIX, bytes, stream>>>(
+      payload, tile_count, out, gout, d_payload, grid_x, c_pad, K, F);
+  return (int)cudaGetLastError();
+}
+
 template <int F>
 int launch(const float* payload, const int* tile_count, const float* out,
            const float* gout, float* d_payload, int num_tiles, int grid_x,
@@ -180,8 +340,9 @@ int launch(const float* payload, const int* tile_count, const float* out,
 
 }  // namespace
 
-// F = 1..8 blend features and K a multiple of 128; the wrapper rejects
-// anything else. d_payload must be zero-filled: only the chunks the walk
+// F = 1..MAX_F blend features (1..8 instantiated, wider counts through
+// launch_wide) and K a multiple of 128; the wrapper rejects anything
+// else. d_payload must be zero-filled: only the chunks the walk
 // reads are written.
 extern "C" int tile_blend_table_bwd(const float* payload, const int* tile_count,
                                     const float* out, const float* gout,
@@ -204,6 +365,10 @@ extern "C" int tile_blend_table_bwd(const float* payload, const int* tile_count,
     SG_CASE(7)
     SG_CASE(8)
     default:
+      if (num_features > MAX_FIXED_F && num_features <= MAX_F) {
+        return launch_wide(payload, tile_count, out, gout, d_payload, num_tiles, grid_x, c_pad, K,
+                           num_features, s);
+      }
       return (int)cudaErrorInvalidValue;
   }
 #undef SG_CASE

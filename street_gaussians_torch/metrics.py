@@ -1,9 +1,11 @@
-"""PSNR and SSIM of a scene's saved renders against its ground truth.
+"""PSNR, SSIM and (where its weights are found) LPIPS of a scene's saved
+renders against its ground truth.
 
     python -m street_gaussians_torch.metrics --config CONFIG.yaml [--device D] [KEY VALUE ...]
 
 runs runner.evaluate_metrics (the JAX package's root metrics.py) and
-prints what that prints: one line per split, then one JSON line.
+prints what that prints: one line per split, then one JSON line (LPIPS
+in both where utils/lpips.py finds weights).
 """
 
 from __future__ import annotations
@@ -24,8 +26,9 @@ def main(argv=None):
 
     results = evaluate_metrics(cfg, device=resolve_device(args.device))
     for split, r in results.items():
-        print(f"{split}: PSNR {r['psnr']:.3f} SSIM {r['ssim']:.4f}")
-    print(json.dumps({k: {m: v[m] for m in ("psnr", "ssim")} for k, v in results.items()}))
+        lp = f" LPIPS {r['lpips']:.4f}" if "lpips" in r else ""
+        print(f"{split}: PSNR {r['psnr']:.3f} SSIM {r['ssim']:.4f}{lp}")
+    print(json.dumps({k: {m: v[m] for m in ("psnr", "ssim", "lpips") if m in v} for k, v in results.items()}))
     return results
 
 

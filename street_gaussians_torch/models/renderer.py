@@ -13,8 +13,15 @@ An include mask ([M] bool over the models) renders a subset of them:
 the actors alone (render_object_mask) or the background alone
 (render_background_mask).
 
-Not ported yet: semantics, normals, tile-row sharding and
-sky_downsample > 2.
+Semantics (use_semantic: the background's first S = table.num_classes
+columns, an actor's one channel in its class_label column) and normals
+(render_normal: the rotation's min-scale axis, turned to face the
+camera) are blended as extra features, normals first: F = 4 + 3 + S
+blend channels (27 at 20 classes with normals). An eval render may
+sample the sky on a 1/N ray grid (sky_downsample N): 2 is an exact
+0.75/0.25 upsample, a larger N a bilinear one.
+
+Not ported yet: tile-row sharding.
 """
 
 from __future__ import annotations
@@ -45,10 +52,12 @@ from street_gaussians_torch.ops.preprocess import preprocess_gaussians
 from street_gaussians_torch.ops.rasterize import RasterizeConfig, rasterize
 from street_gaussians_torch.utils import sh as sh_utils
 from street_gaussians_torch.utils.camera import Camera
+from street_gaussians_torch.utils.losses import jnp_maximum
 from street_gaussians_torch.utils.quaternion import (
     quat_multiply,
     quat_normalize,
     quat_rotate,
+    quat_to_rotmat,
 )
 
 
@@ -91,7 +100,11 @@ class RenderOptions:
     tile_capacity: int = 1024
     instance_capacity: int = 2**21
     max_tiles_per_gaussian: Optional[int] = None
-    # eval only: sample the sky on a 1/N ray grid and upsample (1 or 2)
+    # "logits": the blended semantic channels as they are; "probabilities":
+    # an actor's channel through a sigmoid, and the blended channels as
+    # log(normalised + 1e-8)
+    semantic_mode: str = "logits"
+    # eval only: sample the sky on a 1/N ray grid and upsample
     sky_downsample: int = 1
     corner_cull: bool = True
 
@@ -152,13 +165,13 @@ def compose_frame(
     include_mask: Optional[Union[np.ndarray, torch.Tensor]] = None,
 ):
     """World-space per-Gaussian attributes for one camera: a dict of
-    means3d, scales, quats, opacity, shs, visible (all [C, ...]).
+    means3d, scales, quats, opacity, shs, semantic, normals, visible (all
+    [C, ...]; semantic [C, S] with opts.use_semantic and normals [C, 3]
+    with opts.render_normal, else None).
     flip: optional [C] bool, the train-time symmetry flip (actor rows
     mirrored across the y axis of their box frame); train mode only.
     include_mask: optional [M] bool, the models to render (a tensor on
     the parameters' device is used as it is, numpy is copied there)."""
-    if opts.use_semantic or opts.render_normal:
-        raise NotImplementedError("semantics and normals are not ported yet")
     g = params.gaussians
     mid = aux.model_id
     dev = g.xyz.device
@@ -253,12 +266,42 @@ def compose_frame(
     rest = g.feat_rest * rest_mask[..., None]
     shs = torch.cat([dc[:, None, :], rest], dim=1)  # [C, K, 3]
 
+    # semantics: the background's first S columns (zero-padded), an
+    # actor's one channel in its class_label column
+    semantic = None
+    if opts.use_semantic:
+        S = table.num_classes
+        onehot = torch.nn.functional.one_hot(table.class_label[mid].to(torch.int64), S).to(torch.float32)
+        obj_val = g.semantic[:, 0:1]
+        if opts.semantic_mode == "probabilities":
+            obj_val = torch.sigmoid(obj_val)
+        sem_actor = onehot * obj_val
+        if g.semantic.shape[1] >= S:
+            sem_bkgd = g.semantic[:, :S]
+        else:
+            sem_bkgd = torch.nn.functional.pad(g.semantic, (0, S - g.semantic.shape[1]))
+        semantic = torch.where(is_actor_row[:, None], sem_actor, sem_bkgd)
+
+    # normals: the column of the rotation at the min-scale axis, turned
+    # to face the camera
+    normals = None
+    if opts.render_normal:
+        R = quat_to_rotmat(quats)  # [C, 3, 3]
+        min_axis = torch.argmin(scales, dim=1)  # [C]
+        normals = torch.take_along_dim(R, min_axis[:, None, None].expand(-1, 3, 1), dim=2)[..., 0]
+        dir_pp = means3d - frame_inp.cam.cam_center[None, :]
+        dir_pp = dir_pp / jnp_maximum(torch.linalg.norm(dir_pp, dim=-1, keepdim=True), 1e-12)
+        dot = torch.sum(-dir_pp * normals, dim=-1, keepdim=True)
+        normals = torch.where(dot >= 0, normals, -normals)
+
     return dict(
         means3d=means3d,
         scales=scales,
         quats=quats,
         opacity=torch.sigmoid(g.opacity_logit)[:, 0],
         shs=shs,
+        semantic=semantic,
+        normals=normals,
         visible=visible,
     )
 
@@ -280,6 +323,17 @@ def _upsample2x(img: torch.Tensor) -> torch.Tensor:
         return out.reshape(shape)
 
     return up(up(img, 0), 1)
+
+
+def _upsample_bilinear(img: torch.Tensor, ds: int) -> torch.Tensor:
+    """[h, w, 3] -> [ds h, ds w, 3] bilinear with half-pixel centres, as
+    jax.image.resize(method="bilinear") upsamples: at the edges JAX
+    renormalises the triangle weights over the pixels inside the image
+    and torch clamps the sample position, and both put all the weight on
+    the edge pixel."""
+    x = img.permute(2, 0, 1)[None]
+    up = torch.nn.functional.interpolate(x, scale_factor=ds, mode="bilinear", align_corners=False)
+    return up[0].permute(1, 2, 0)
 
 
 def screen_space(
@@ -356,16 +410,19 @@ def render_frame(
     train = opts.mode == "train"
     sky = params.sky if compose_sky else None
     with record_function("screen_space"):
-        screen, _ = screen_space(
+        screen, composed = screen_space(
             params, aux, table, pose_data, frame_inp, step, opts, flip, mean2d_offset, include_mask
         )
     dev = screen.depth.device
+    # extra blend channels: normals first, then semantics
+    extras = [composed[k] for k in ("normals", "semantic") if composed[k] is not None]
     bg = torch.full((3,), 1.0 if opts.white_background else 0.0, device=dev)
     out = rasterize(
         screen,
         cam.H,
         cam.W,
         bg_color=bg,
+        extra_features=torch.cat(extras, dim=-1) if extras else None,
         config=RasterizeConfig(
             # falsy tile_capacity = uncapped
             tile_capacity=opts.tile_capacity or opts.instance_capacity,
@@ -377,8 +434,6 @@ def render_frame(
 
     if sky is not None:
         ds = opts.sky_downsample if not train else 1
-        if ds not in (1, 2):
-            raise NotImplementedError(f"sky_downsample={ds} is not ported yet (1 or 2)")
         with record_function("sky"):
             sky_rgb = render_sky(
                 sky, cam, downsample=ds, table=sky_table,
@@ -386,6 +441,8 @@ def render_frame(
             )
             if ds == 2:
                 sky_rgb = _upsample2x(sky_rgb)[: cam.H, : cam.W]
+            elif ds > 1:
+                sky_rgb = _upsample_bilinear(sky_rgb, ds)[: cam.H, : cam.W]
             out["rgb"] = out["rgb"] + sky_rgb * out["T"][..., None]
 
     if params.color_correction is not None:
@@ -393,6 +450,20 @@ def render_frame(
 
     if not train:
         out["rgb"] = torch.clamp(out["rgb"], 0.0, 1.0)
+
+    if extras:
+        planes = out.pop("extra")
+        offset = 0
+        if composed["normals"] is not None:
+            n = planes[..., 0:3]
+            out["normals"] = n / jnp_maximum(torch.linalg.norm(n, dim=-1, keepdim=True), 1e-8)
+            offset = 3
+        if composed["semantic"] is not None:
+            sem = planes[..., offset:]
+            if opts.semantic_mode == "probabilities":
+                sem = sem / (torch.sum(sem, dim=-1, keepdim=True) + 1e-8)
+                sem = torch.log(sem + 1e-8)
+            out["semantic"] = sem
 
     out["radii"] = screen.radius
     out["visibility"] = screen.radius > 0

@@ -27,6 +27,10 @@ block of 256 threads per tile (one thread per pixel) and stage each
 128-lane chunk in shared memory; no block shares a slot with another,
 so the backward writes its own table without atomics.
 
+F = 1..8 is instantiated; F = 9..64 (tile_raster2.MAX_FEATURES) takes
+the kernels' runtime-count variants, the chunk's rows and the
+per-feature state in shared memory; a wider F raises.
+
 `tile_blend` and `tile_blend_bwd` run their plain PyTorch versions for a
 CPU tensor and their kernels for a CUDA tensor. `TileBlend` is the
 autograd Function around the two.
@@ -232,6 +236,8 @@ def tile_blend_bwd_plain(
 
 
 def _check_args(name, payload, tile_count, num_features):
+    if not 1 <= num_features <= MAX_FEATURES:
+        raise ValueError(f"{name}: the kernels take 1..{MAX_FEATURES} features (MAX_FEATURES), got {num_features}")
     if payload.dim() != 3 or payload.dtype != torch.float32:
         raise ValueError(f"{name}: payload must be [num_tiles, c_pad, K] float32")
     if payload.shape[2] % CHUNK != 0:
@@ -242,11 +248,6 @@ def _check_args(name, payload, tile_count, num_features):
         raise ValueError(f"{name}: tile_count must be [{payload.shape[0]}] int32")
     if tile_count.device != payload.device:
         raise ValueError(f"{name}: tile_count is not on the payload's device")
-
-
-def _check_features(name, num_features):
-    if not 1 <= num_features <= MAX_FEATURES:
-        raise ValueError(f"{name}: the kernel takes 1..{MAX_FEATURES} features, got {num_features}")
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -264,7 +265,6 @@ def tile_blend(
     if payload.device.type == "cpu":
         return tile_blend_plain(payload, tile_count, num_features, grid_x)
     _build.require_cuda(payload, "tile_blend")
-    _check_features("tile_blend", num_features)
     payload = payload.contiguous()
     tile_count = tile_count.contiguous()
     num_tiles, c_pad, K = payload.shape
@@ -308,7 +308,6 @@ def tile_blend_bwd(
     if payload.device.type == "cpu":
         return tile_blend_bwd_plain(payload, tile_count, out, gout, num_features, grid_x)
     _build.require_cuda(payload, "tile_blend_bwd")
-    _check_features("tile_blend_bwd", num_features)
     payload, tile_count, out, gout = (t.contiguous() for t in (payload, tile_count, out, gout))
     num_tiles, c_pad, K = payload.shape
     d_payload = torch.zeros_like(payload)

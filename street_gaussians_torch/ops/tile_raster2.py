@@ -33,6 +33,14 @@ the notes at the head of the two sources for the rest of the design
 (lanes evaluated in batches, the backward's lane-parallel 256-pixel
 sums) and for why the segments agree bit for bit on where a pixel stops.
 
+Features: F = 4 on the main path (rgb, depth), 7 with normals, 4 + S
+with S semantic classes, 27 with both at 20 classes. The kernels are
+instantiated for F = 1..8; F = 9..MAX_FEATURES (64) takes variants with
+F a runtime count, whose per-feature state (the forward's accumulators,
+the backward's cotangents and its reduction, 8 rows a pass) lives in
+shared memory and whose sums run in the instantiated kernels' order.
+A wider F raises.
+
 `tile_blend_instances` (forward) and `tile_blend_bwd` (backward) run
 their plain PyTorch versions for a CPU tensor and their kernels for a
 CUDA tensor. `TileBlendInstances` is the autograd Function around the
@@ -63,7 +71,10 @@ T_EPS = 1e-4
 LOG_T_EPS = math.log(T_EPS)
 PAYLOAD_HEADER = 6  # rows before the feature rows
 ABS_ROWS = 2  # AbsGS gradient rows (zero in the forward)
-MAX_FEATURES = 8  # feature counts the CUDA kernel is instantiated for
+# feature counts the CUDA kernels take: 1..8 instantiated, 9..64 through
+# their runtime-count kernels (per-feature state in shared memory); a
+# wider F raises, on the card and on the CPU alike
+MAX_FEATURES = 64
 # tiles per step of the plain version (bounds its [tiles, 256, 128]
 # temporaries to about 1 GB each at the largest)
 _PLAIN_TILES = 2048
@@ -202,6 +213,11 @@ def tile_blend_plain(
 
 
 def _check_args(payload, tile_start, tile_count, num_features, num_tiles):
+    if not 1 <= num_features <= MAX_FEATURES:
+        raise ValueError(
+            f"tile_blend_instances: the kernels take 1..{MAX_FEATURES} features (MAX_FEATURES), "
+            f"got {num_features}"
+        )
     if payload.dim() != 3 or payload.shape[2] != CHUNK or payload.dtype != torch.float32:
         raise ValueError(f"tile_blend_instances: payload must be [NB+1, c_pad, {CHUNK}] float32")
     if payload.shape[1] < PAYLOAD_HEADER + num_features:
@@ -332,10 +348,6 @@ def _forward(payload, tile_start, tile_count, num_features, grid_x, num_tiles):
         out = tile_blend_plain(payload, tile_start, tile_count, num_features, grid_x, num_tiles)
         return out, None
     _build.require_cuda(payload, "tile_blend_instances")
-    if not 1 <= num_features <= MAX_FEATURES:
-        raise ValueError(
-            f"tile_blend_instances: the kernel takes 1..{MAX_FEATURES} features, got {num_features}"
-        )
     res = _launch_forward(
         payload.contiguous(), tile_start.contiguous(), tile_count.contiguous(),
         num_features, grid_x, num_tiles,
@@ -478,10 +490,6 @@ def tile_blend_bwd(
             payload, tile_start, tile_count, out, gout, num_features, grid_x, num_tiles
         )
     _build.require_cuda(payload, "tile_blend_bwd")
-    if not 1 <= num_features <= MAX_FEATURES:
-        raise ValueError(
-            f"tile_blend_bwd: the kernel takes 1..{MAX_FEATURES} features, got {num_features}"
-        )
     payload, tile_start, tile_count, out, gout = (
         t.contiguous() for t in (payload, tile_start, tile_count, out, gout)
     )

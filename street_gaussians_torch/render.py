@@ -4,8 +4,11 @@
 
 runs runner.render_sets (the JAX package's root render.py, mode
 evaluate): test_renders/ and train_renders/ PNGs under model_path, the
-mean ms per view and the pipelined frames per second. `--mode
-trajectory` (the per-channel videos) is not ported yet.
+mean ms per view and the pipelined frames per second. With `--mode
+trajectory` it runs runner.render_trajectory: every view in frame order
+(render.concat_cameras picks the cameras), the channels rgb, object,
+background, depth and acc under model_path/trajectory/ as PNGs and, with
+render.save_video (the default, which needs OpenCV), one mp4 a channel.
 """
 
 from __future__ import annotations
@@ -21,12 +24,10 @@ def main(argv=None):
     cfg = config_from_args(args)
     mode = cfg.mode if cfg.mode in ("evaluate", "trajectory") else "evaluate"
     cfg.mode = "evaluate"
-    if mode == "trajectory":
-        raise NotImplementedError(
-            "render mode trajectory (runner.render_trajectory and its videos) is not ported to "
-            "street_gaussians_torch yet (ROADMAP.md queue 1, item 4)")
-    from street_gaussians_torch.runner import render_sets
+    from street_gaussians_torch.runner import render_sets, render_trajectory
 
+    if mode == "trajectory":
+        return render_trajectory(cfg, device=resolve_device(args.device))
     return render_sets(cfg, device=resolve_device(args.device))
 
 

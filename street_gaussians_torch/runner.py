@@ -6,16 +6,17 @@ Port of street_gaussians_tpu/runner.py on one device: `build_scene`,
 `evaluate_psnr`, `save_scene_artifacts`, `training` (the single-camera
 path with the overflow watchdog, train_log.jsonl, test, save and
 checkpoint iterations and the resume), `render_sets` (the demand-adaptive
-capacity ladder, the per-view regrow, the sky table built once) and
-`evaluate_metrics` (PSNR and SSIM over the saved renders).
+capacity ladder, the per-view regrow, the sky table built once),
+`render_trajectory` (full, object and background renders of every view
+in frame order, per-channel PNGs and videos) and `evaluate_metrics`
+(PSNR, SSIM and, where its weights are found, LPIPS over the saved
+renders).
 
 Not ported (each raises NotImplementedError where a config asks for it):
 the batched, data-parallel, row- and tile-sharded and multi-host
 training branches and `render.parallel` (ROADMAP queue 1 item 6), the
-viewer bridge (item 7), `render_trajectory` (item 4). The every-1000-
-iteration `log_images` grid is left out: it needs visualize.py (item 7).
-LPIPS is left out of `evaluate_metrics` (item 4); the JAX function adds it
-only when weights are found.
+viewer bridge (item 7). The every-1000-iteration `log_images` grid is
+left out (item 7).
 """
 
 from __future__ import annotations
@@ -36,7 +37,14 @@ from street_gaussians_torch._device import resolve_device
 from street_gaussians_torch.config import Config, save_config
 from street_gaussians_torch.data.dataset import CameraView, Scene, load_ground_truth, load_waymo_scene
 from street_gaussians_torch.models.corrections import init_color_correction, init_pose_correction
-from street_gaussians_torch.models.renderer import RenderOptions, SceneParams, render_frame, screen_space
+from street_gaussians_torch.models.renderer import (
+    RenderOptions,
+    SceneParams,
+    render_background_mask,
+    render_frame,
+    render_object_mask,
+    screen_space,
+)
 from street_gaussians_torch.models.sky_cubemap import build_sky_table, init_sky
 from street_gaussians_torch.train_lib import (
     GroundTruth,
@@ -49,6 +57,8 @@ from street_gaussians_torch.train_lib import (
 )
 from street_gaussians_torch.utils import losses as L
 from street_gaussians_torch.utils.image_io import imread, imwrite
+from street_gaussians_torch.utils.lpips import lpips as lpips_fn
+from street_gaussians_torch.visualize import Visualizer, visualize_depth
 
 EVAL_STEP = 10**9  # SH degree fully active
 
@@ -147,6 +157,7 @@ def render_opts_from_cfg(cfg: Config, mode: str) -> RenderOptions:
         mode=mode,
         render_normal=cfg.render.get("render_normal", False),
         use_semantic=cfg.data.get("use_semantic", False),
+        semantic_mode=cfg.model.gaussian.get("semantic_mode", "logits"),
         white_background=cfg.data.get("white_background", False),
         scaling_modifier=cfg.render.get("scaling_modifier", 1.0),
         tile_capacity=tc,
@@ -729,10 +740,53 @@ def render_sets(cfg: Config, state: Optional[TrainState] = None, scene: Optional
     return out
 
 
+def render_trajectory(cfg: Config, state: Optional[TrainState] = None, scene: Optional[Scene] = None,
+                      device=None) -> Dict:
+    """Render every view in frame order (those of render.concat_cameras
+    when it lists any) from the newest checkpoint: a full, an
+    object-only and a background-only eval render each, written as the
+    channels rgb, object, background, depth (visualize_depth) and acc
+    under model_path/trajectory/: PNGs (render.save_image) and one video
+    a channel (render.save_video, which needs OpenCV) (ref: render.py:62-85,
+    street_gaussian_visualizer.py:12-181). The sky's window table is
+    built once. Returns the number of frames and the directory."""
+    device = resolve_device(device)
+    scene = scene or build_trained_scene(cfg, device)
+    if state is None:
+        state = load_trained_state(cfg, scene, device)
+    eval_full = make_eval_render(cfg, scene)
+    eval_obj = make_eval_render(cfg, scene, render_object_mask(scene.table))
+    eval_bkgd = make_eval_render(cfg, scene, render_background_mask(scene.table))
+    sky_table = None
+    if state.params.sky is not None:
+        with torch.no_grad():
+            sky_table = build_sky_table(state.params.sky.cubemap)
+
+    views = sorted(scene.all_views, key=lambda v: (v.frame_idx, v.cam))
+    concat = list(cfg.render.get("concat_cameras", []))
+    if concat:
+        views = [v for v in views if v.cam in concat]
+    out_dir = os.path.join(cfg.model_path, "trajectory")
+    vis = Visualizer(out_dir, save_image=cfg.render.get("save_image", True),
+                     save_video=cfg.render.get("save_video", True), fps=cfg.render.get("fps", 24))
+    host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    for view in views:
+        full, obj, bkgd = (fn(state.params, state.aux, view.frame_input, sky_table=sky_table)
+                           for fn in (eval_full, eval_obj, eval_bkgd))
+        vis.add("rgb", view.image_name, host(full["rgb"]))
+        vis.add("object", view.image_name, host(obj["rgb"]))
+        vis.add("background", view.image_name, host(bkgd["rgb"]))
+        vis.add("depth", view.image_name, visualize_depth(host(full["depth"]))[0])
+        vis.add("acc", view.image_name, host(full["acc"])[..., None].repeat(3, -1))
+    vis.summarize()
+    return {"num_frames": len(views), "out_dir": out_dir}
+
+
 def evaluate_metrics(cfg: Config, device=None) -> Dict:
     """Offline PSNR and SSIM of the saved renders against the ground
-    truth (ref: metrics.py:26-104), per split, written to
-    results_{split}.json. LPIPS is not ported (ROADMAP queue 1 item 4)."""
+    truth (ref: metrics.py:26-104), and LPIPS where its weights are found
+    (utils/lpips.py; else none, and a line says so), per split, written
+    to results_{split}.json."""
     device = resolve_device(device)
     scene = build_scene(cfg, device)
     gt_cache = GTCache(cfg.data.get("white_background", False), device=device)
@@ -749,14 +803,22 @@ def evaluate_metrics(cfg: Config, device=None) -> Dict:
             pred = torch.as_tensor(np.ascontiguousarray(imread(p)[..., ::-1]).astype(np.float32) / 255.0,
                                    device=device)
             gt = gt_cache.get(view).image
-            per_view.append({"name": view.image_name, "psnr": float(L.psnr(pred, gt)),
-                             "ssim": float(L.ssim(pred, gt))})
+            rec = {"name": view.image_name, "psnr": float(L.psnr(pred, gt)), "ssim": float(L.ssim(pred, gt))}
+            lp = lpips_fn(pred, gt)
+            if lp is not None:
+                rec["lpips"] = lp
+            per_view.append(rec)
         if per_view:
             results[split] = {
                 "psnr": sum(v["psnr"] for v in per_view) / len(per_view),
                 "ssim": sum(v["ssim"] for v in per_view) / len(per_view),
                 "per_view": per_view,
             }
+            if "lpips" in per_view[0]:
+                results[split]["lpips"] = sum(v["lpips"] for v in per_view) / len(per_view)
+            else:
+                print(f"[metrics] {split}: no LPIPS weights found ($SGTPU_LPIPS_WEIGHTS or the torch hub "
+                      "cache): PSNR and SSIM only")
             with open(os.path.join(cfg.model_path, f"results_{split}.json"), "w") as f:
                 json.dump(results[split], f, indent=2)
     return results

@@ -2,7 +2,7 @@
 run lengths they are given, and each block's start and end on the card.
 
     python -m street_gaussians_torch.script.block_times [--iters 3]
-        [--seg 512 1024 ...] [--variant='-DSG_BWD_LB=8' ...]
+        [--seg 512 1024 ...] [--variant='-DSG_BWD_LB=8' ...] [--features 27]
 
 builds `csrc/tile_blend.cu` and `csrc/tile_blend_bwd.cu` a second time
 with -DSG_BLOCK_TIMES (see `csrc/block_times.cuh`; the shipped libraries
@@ -18,6 +18,11 @@ prints, one JSON line each:
            over the blocks the card holds at once (the throughput time:
            what the launch would take if its work spread evenly), and
            when half and 99% of the blocks had ended
+  features with --features F > 4: the same on the bench frame with F - 4
+           extra feature columns (script.blend_times.frame_inputs), the
+           backward on that frame with random cotangents instead of a
+           train step's; F above 8 takes the kernels' runtime-count
+           variants, whose blocks per SM the probe build reports too
   sweep    with --seg and/or --variant: the forward and the backward
            (with the forward's saved state, and without) timed by CUDA
            events at other segment lengths (lanes; a length beyond every
@@ -187,21 +192,30 @@ def main(argv=None) -> None:
     ap.add_argument("--seg", type=int, nargs="*", default=[], help="segment lengths to time, in lanes")
     ap.add_argument("--variant", action="append", default=[],
                     help="nvcc flags of a build to time, as --variant='-DSG_BWD_LB=8'; may repeat")
+    ap.add_argument("--features", type=int, default=4,
+                    help="blend features; above 4 the bench frame with random extra columns")
     args = ap.parse_args(argv)
     device = resolve_device(None)
     for name, info in _build.build(REGIONS, PROBE_FLAGS).items():
         for ln in info["log"].splitlines():
-            if "registers" in ln or ("Compiling" in ln and ("ILi4" in ln or "plan" in ln)):
+            if "registers" in ln or ("Compiling" in ln and ("ILi4" in ln or "plan" in ln or "wide" in ln)):
                 print(f"[build] {name}: {ln.strip()}")
-    fwd, bwd = bench_inputs(device, args.seed)
+    if args.features > 4:
+        from street_gaussians_torch.script.blend_times import frame_inputs
+
+        fwd, bwd = frame_inputs(device, args.features, args.seed)
+        step = f"bench frame at F={args.features}, random cotangents"
+    else:
+        fwd, bwd = bench_inputs(device, args.seed)
+        step = "train step"
     F = fwd[3]
     print(json.dumps({"runs": "bench frame 0 (serve)", **run_length_stats(fwd[2])}))
-    print(json.dumps({"runs": "bench train step", **run_length_stats(bwd[2])}))
+    print(json.dumps({"runs": f"bench {step}", **run_length_stats(bwd[2])}))
     with torch.no_grad():
         for what, name, fn in (
-            ("forward, bench frame", "tile_blend", lambda: tile_raster2.tile_blend_instances(*fwd)),
-            ("forward, train step", "tile_blend", lambda: tile_raster2.tile_blend_instances(*bwd[:3], *bwd[5:])),
-            ("backward, train step", "tile_blend_bwd", lambda: tile_raster2.tile_blend_bwd(*bwd)),
+            (f"forward, bench frame, F={F}", "tile_blend", lambda: tile_raster2.tile_blend_instances(*fwd)),
+            (f"forward, {step}", "tile_blend", lambda: tile_raster2.tile_blend_instances(*bwd[:3], *bwd[5:])),
+            (f"backward, {step}", "tile_blend_bwd", lambda: tile_raster2.tile_blend_bwd(*bwd)),
         ):
             for row in block_times(name, fn, F, args.iters):
                 print(json.dumps({"what": what, **row}))

@@ -38,9 +38,12 @@ from street_gaussians_torch.kernels import _build
 from street_gaussians_torch.models.renderer import RenderOptions, SceneParams, screen_space
 from street_gaussians_torch.ops import tile_raster2
 from street_gaussians_torch.ops.rasterize import RasterizeConfig, blend_inputs
-from street_gaussians_torch.ops.tile_raster2 import CHUNK, MAX_FEATURES, PIX
+from street_gaussians_torch.ops.tile_raster2 import CHUNK, PIX
 
 FLOOR_ROWS = 8  # payload rows the floor sums
+# feature counts csrc/probe_blend.cu is instantiated for (kernel 2.1 at
+# F = 4 is what it ablates)
+MAX_FEATURES = 8
 
 
 def _bind(lib: ctypes.CDLL) -> None:

@@ -16,8 +16,13 @@ actors alone a second time (the same flip, no sky) for the
 object-opacity loss; before that step the JAX step weighs that loss by
 0, and this one skips the render.
 
-Not ported yet (raise NotImplementedError): semantics and normals, the
-row-sharded and parallel steps.
+Semantics and normals (opts.use_semantic, opts.render_normal) are
+rendered as extra blend channels; no loss reads them (as in the JAX
+step), so their cotangents are zero and the semantic rows keep their
+values.
+
+Not ported yet (raise NotImplementedError): the row-sharded and
+parallel steps.
 """
 
 from __future__ import annotations
@@ -285,8 +290,6 @@ def make_train_step(
     `generator` (flip first, then the sky jitter) unless `draws` gives
     them; with neither, the step draws none (no flip, no jitter)."""
     o = cfg.optim
-    if opts.use_semantic or opts.render_normal:
-        raise NotImplementedError("semantics and normals are not ported yet")
     C = table.capacity
     obj_mask = None
     if o.lambda_reg > 0 and table.num_models > 1:

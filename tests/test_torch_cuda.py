@@ -24,6 +24,7 @@ from chip_smoke import (
     random_table_case,
     small_runner_check,
     small_step_check,
+    wide_blend_checks,
 )
 from street_gaussians_torch.kernels import _build
 from street_gaussians_torch.ops import fill, rasterize, segsum, tile_raster, tile_raster2
@@ -76,10 +77,11 @@ def test_wrappers_reject_bad_inputs(cuda_device):
             torch.zeros((2, 4), device=cuda_device), torch.zeros(4, dtype=torch.int32),
             torch.tensor(0, dtype=torch.int32, device=cuda_device), 8,
         )
-    p = torch.zeros((2, 16, 128), device=cuda_device)
+    p = torch.zeros((2, 80, 128), device=cuda_device)
     z = torch.zeros(1, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError):
-        tile_raster2.tile_blend_instances(p, z, z, 9, 1, 1)
+    for F in (0, tile_raster2.MAX_FEATURES + 1):  # past the kernels' cap
+        with pytest.raises(ValueError, match="MAX_FEATURES"):
+            tile_raster2.tile_blend_instances(p, z, z, F, 1, 1)
 
 
 def _bwd_case(seed, dev):
@@ -261,6 +263,37 @@ def test_blend_kernels_match_plain_on_long_runs(cuda_device, opacity):
     assert torch.equal(got, tile_raster2.tile_blend_bwd(payload, starts, counts, out, gout, F, gx, T))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [4, 7, 24, 27, 64])
+def test_wide_blend_kernels_match_plain(cuda_device, F):
+    """Kernels 2.1, 2.2, 2.5 and 2.6 at F = 4 and 7 (instantiated) and
+    past the 8 instantiated counts (24, 27 and 64, the cap: the
+    runtime-count kernels), against their plain versions by chip_smoke's
+    rules (chip_smoke.wide_blend_checks: random and long-run cases,
+    random cotangents on every channel, the instance backward with and
+    without the forward's state bit-equal), each launched."""
+    err = dict.fromkeys(("tile_blend_instances", "tile_blend_bwd", "tile_blend_table", "tile_blend_table_bwd"), 0.0)
+    kernels = (tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd, tile_raster.tile_blend,
+               tile_raster.tile_blend_bwd)
+    before = [k.launches for k in kernels]
+    wide_blend_checks(cuda_device, F, err)
+    torch.cuda.synchronize()
+    assert all(k.launches > b for k, b in zip(kernels, before))
+    assert all(np.isfinite(v) for v in err.values())
+
+
+@pytest.mark.cuda
+def test_wide_blend_kernels_repeat_bit_for_bit(cuda_device):
+    """At F = 27 the runtime-count kernels repeat bit for bit."""
+    case = random_blend_case(3, cuda_device, grid_x=6, grid_y=5, F=27)
+    payload, starts, counts, F, gx, T = case
+    out = tile_raster2.tile_blend_instances(*case)
+    assert torch.equal(out, tile_raster2.tile_blend_instances(*case))
+    gout = torch.randn((T, 256, F + 1), generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    args = (payload, starts, counts, out, gout, F, gx, T)
+    assert torch.equal(tile_raster2.tile_blend_bwd(*args), tile_raster2.tile_blend_bwd(*args))
+
+
 def _table_bwd_case(seed, dev):
     case = random_table_case(seed, dev, grid_x=5, grid_y=4, K=384)
     payload, counts, F, gx = case
@@ -309,8 +342,8 @@ def test_table_autograd_function_takes_the_kernels(cuda_device):
     assert (tile_raster.tile_blend.launches, tile_raster.tile_blend_bwd.launches) == (fwd + 1, bwd + 1)
     assert torch.equal(y.detach(), out)
     assert torch.equal(p.grad, tile_raster.tile_blend_bwd(payload, counts, out, gout, F, gx))
-    with pytest.raises(ValueError):
-        tile_raster.tile_blend(payload, counts, 9, gx)
+    with pytest.raises(ValueError, match="MAX_FEATURES"):  # past the kernels' cap
+        tile_raster.tile_blend(payload, counts, tile_raster2.MAX_FEATURES + 1, gx)
 
 
 @pytest.mark.cuda

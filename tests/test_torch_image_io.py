@@ -235,8 +235,9 @@ def test_port_imports_no_jax_and_no_top_level_cv2_or_yaml():
     package, orbax or yaml anywhere (the port reads and writes its YAML
     configs itself and saves torch checkpoints), nor cv2 at module level
     (the card's machine is not known to have it: image_io imports it
-    inside the functions that read non-PNG images). The modules of the
-    config, checkpoint, runner and CLI slice are among those checked."""
+    inside the functions that read non-PNG images; visualize.py inside
+    write_video). The modules of the config, checkpoint, runner and CLI
+    slice, visualize.py and utils/lpips.py are among those checked."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "street_gaussians_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -250,6 +251,7 @@ def test_port_imports_no_jax_and_no_top_level_cv2_or_yaml():
                     bad.append(f"{os.path.relpath(path, REPO)}:{n}: {line.strip()}")
     names = {os.path.relpath(p, REPO) for p in files}
     slice_modules = {f"street_gaussians_torch/{m}.py" for m in (
-        "config", "checkpoint", "runner", "train", "render", "metrics", "utils/yaml_subset")}
+        "config", "checkpoint", "runner", "train", "render", "metrics", "utils/yaml_subset", "visualize",
+        "utils/lpips")}
     assert slice_modules <= names, slice_modules - names
     assert len(files) > 40 and not bad, bad

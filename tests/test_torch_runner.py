@@ -423,9 +423,9 @@ def test_unported_branches_raise(small_seq, tmp_path):
 
 
 def test_clis_with_config(tmp_path, capsys):
-    """train, render and metrics in-process on the real Waymo recipe file
-    (configs/example/waymo_train_002.yaml over its parent), cut to 10
-    iterations of a 2-frame sequence, a 32-texel sky."""
+    """train, render (both modes) and metrics in-process on the real
+    Waymo recipe file (configs/example/waymo_train_002.yaml over its
+    parent), cut to 10 iterations of a 2-frame sequence, a 32-texel sky."""
     root = str(tmp_path / "seq")
     write_sequence(root, num_frames=2)
     opts = ["source_path", root, "model_path", str(tmp_path / "out"), "data.selected_frames", "[0, 1]",
@@ -444,8 +444,10 @@ def test_clis_with_config(tmp_path, capsys):
     text = capsys.readouterr().out
     assert json.loads(text.strip().splitlines()[-1]) == {"train": {m: res["train"][m] for m in ("psnr", "ssim")}}
     assert np.isfinite(res["train"]["psnr"]) and 0 < res["train"]["ssim"] <= 1
-    with pytest.raises(NotImplementedError, match="item 4"):
-        trender_cli.main(argv[:4] + ["--mode", "trajectory"] + argv[4:])
+    traj = trender_cli.main(argv[:4] + ["--mode", "trajectory"] + argv[4:] + ["render.save_video", "false"])
+    assert traj["num_frames"] == 2
+    assert sorted(os.listdir(traj["out_dir"])) == sorted(
+        f"00000{i}_0_{c}.png" for i in range(2) for c in ("rgb", "object", "background", "depth", "acc"))
 
 
 def test_cli_without_config_runs_the_bench_cell(monkeypatch, capsys):
