@@ -94,11 +94,30 @@
    (camera 0, sky_downsample 4, save_video false), every frame finite and
    written; LPIPS on weights from a seed at 1600x1067, card against CPU.
    `[wide]` lines;
-11. prints one `kernels` JSON line with all eight kernels (with the
+11. tile-row bands and camera data parallel (`[parallel]` lines):
+   11a serves the bench frame in 2 and 4 bands in turn against the whole
+   frame (sky_downsample 1 on every row, 2 on every row but the band
+   edges', where the reference's bands differ from its whole frame),
+   radii equal, the overflow counters summed; kernels 2.1 and 2.3 on
+   each band's own inputs, an empty band (a 32-row frame in 4 bands),
+   ms/view and peak memory at D = 1, 2, 4 in turns; 11b trains the bench
+   cell's step in 2 bands against the whole-frame step on the same
+   draws (loss, gradients, parameters), kernels 2.2 and 2.4 on the band
+   step's own inputs, ms/step at D = 1 and 2 in turns; 11c spawns two
+   ranks on the one card (Gloo), one bench view each: one
+   camera-parallel step in one band and in two, the ranks bit-equal and
+   held to an in-process reference (both views' gradients averaged, one
+   Adam step), ms/step of two ranks sharing one card (not a scaling
+   figure); 11d runs `train` at train.tile_shards 2, `torchrun
+   --nproc_per_node 2 ... train.batch_size 2` (rank 0 alone writes) and
+   `render` with and without render.parallel tile=2 (PNGs within 1) on
+   step 8's sequence;
+12. prints one `kernels` JSON line with all eight kernels (with the
    loaded sequence's launches before and after the gate, step 9's in
-   training and in render_sets, and step 10's F = 27 times, bounds,
-   launches and the F = 4 times in turns with them);
-12. prints {"ok": true, "device": {...}} as the last line.
+   training and in render_sets, step 10's F = 27 times, bounds,
+   launches and the F = 4 times in turns with them, and step 11's
+   launches on the band paths);
+13. prints {"ok": true, "device": {...}} as the last line.
 
 Any failure raises (exit code != 0). Without CUDA, or without the rest
 of the repository beside it, it fails before printing a result.
@@ -630,6 +649,9 @@ def main() -> int:
         run = runner_phase(dev, os.path.join(tmp, "seq"), tmp, smi)
         torch.cuda.empty_cache()
         wide = wide_phase(dev, os.path.join(tmp, "seq"), tmp, smi)
+        torch.cuda.empty_cache()
+        # ---- 11. tile-row bands and camera data parallel ----
+        par = parallel_phase(dev, scene, params, os.path.join(tmp, "seq"), tmp, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -660,6 +682,12 @@ def main() -> int:
             err = max(err, wide["errors"][name])
         if name in wide["f27"]:
             extra = {**extra, f"f{WIDE_F}": wide["f27"][name]}
+        if name in par["errors"]:
+            err = max(err, par["errors"][name])
+        band_launches = {k: v[name] for k, v in par["launches"].items() if name in v}
+        band_launches.update({f"serve_{k}": v[name] for k, v in par["launches"]["serve"].items() if name in v})
+        if band_launches:
+            extra = {**extra, "band_launches": band_launches}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": n, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
                         "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": lib, **extra})
@@ -672,6 +700,7 @@ def main() -> int:
     log(f"[waymo] summary: {json.dumps({k: v for k, v in seq.items() if k not in ('launches', 'errors')})}")
     log(f"[runner] summary: {json.dumps({k: v for k, v in run.items() if k not in ('launches', 'errors')})}")
     log(f"[wide] summary: {json.dumps(wide['numbers'])}")
+    log(f"[parallel] summary: {json.dumps(par['numbers'])}")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2032,7 +2061,7 @@ def small_step_check(dev, lambda_reg: float = 0.0):
         losses = []
         for i in range(2):
             state, sc = cell.step_fn(state, cell.frame, cell_gt, draws=dr[i])
-            losses.append(float(sc["loss"]))
+            losses.append(float(sc["loss"].detach()))
         if lambda_reg > 0 and not float(sc.get("obj_acc_loss", 0.0)) > 0:
             raise AssertionError("small step at the gate: no object-opacity loss")
         res.append(dict(grads=_numpy(grads), params=_numpy(flatten_params(state.params)),
@@ -2283,6 +2312,630 @@ def train_phase(dev) -> dict:
              {"per": "both calls of one step", "calls": seg["calls"], "vjp": vjp}),
         ],
     }
+
+
+# ---- step 11: tile-row bands and camera data parallel ----
+PAR_BANDS = (2, 4)
+PAR_TURNS = 3
+PAR_VIEWS = (0, 1)  # the bench scene's views of the two camera ranks
+PAR_ITERS = 10  # runner iterations on step 8's sequence
+PAR_FRAMES = 2  # of its frames (6 views)
+PAR_CAPACITY = 6_291_456  # 3,145,728 a band at tile_shards 2
+PAR_TRAIN_CAPACITY = 4 * 1024 * 1024  # the bench cell with parallel_cell's scales
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def band_edge_rows(H: int, D: int) -> list:
+    """The rows where the JAX package's joined bands may differ from its
+    whole frame at sky_downsample 2 (ROADMAP.md queue 3): the two rows
+    beside each band edge, where a band's own upsample clamps, and the
+    image's last row when the last band reaches past it."""
+    from street_gaussians_torch.parallel.tiles import band_layout
+
+    lay = band_layout(H, D)
+    rows = lay.gy_local * 16
+    edges = {r for d in range(1, D) for r in (d * rows - 1, d * rows)}
+    if lay.H_pad > H:
+        edges.add(H - 1)
+    return sorted(r for r in edges if r < H)
+
+
+def by_row(name: str, a):
+    """A parameter leaf with its rows first: the sky's [3, texels]
+    cubemap as [texels, 3], so that grads_close and params_close count
+    texels, not channels."""
+    return a.T if name == "sky.cubemap" else a
+
+
+def compare_frames(got: dict, ref: dict, what: str, rows=None) -> float:
+    """A frame's rgb, depth and acc against another's at the blend
+    tolerances (compare_blend), on `rows` (default all)."""
+    def stack(o):
+        x = torch.cat([o["rgb"], o["depth"][..., None], o["acc"][..., None]], dim=-1)
+        return x if rows is None else x[rows]
+
+    return compare_blend(stack(got), stack(ref), 5, what)
+
+
+def parallel_cell(device, **overrides):
+    """Step 11's train cell: the bench train cell (its scene entries
+    replaced by `overrides`) with random rotations and anisotropic
+    scales, drawn on the CPU from a fixed seed (the same on every rank),
+    as small_step_check and the CPU tests do: with the synthetic scene's
+    identity rotations and isotropic scales the rotation gradient is
+    rounding noise, whose sign Adam follows; its ground truth view_gt's;
+    an instance capacity of PAR_TRAIN_CAPACITY."""
+    import dataclasses
+
+    from street_gaussians_torch import train
+    from street_gaussians_torch.train_lib import make_train_step
+
+    cell = train.bench_train_cell(device, seed=0, **overrides)
+    g0, alive = cell.state.params.gaussians, cell.state.aux.alive.cpu().numpy()[:, None]
+    rng = np.random.default_rng(8)
+    C = g0.xyz.shape[0]
+    rot = np.where(alive, rng.normal(size=(C, 4)), g0.rot.cpu().numpy()).astype(np.float32)
+    log_scale = (g0.log_scale.cpu().numpy() + rng.uniform(-0.4, 0.4, (C, 3)) * alive).astype(np.float32)
+    g = dataclasses.replace(g0, rot=torch.as_tensor(rot, device=device),
+                            log_scale=torch.as_tensor(log_scale, device=device))
+    state = dataclasses.replace(cell.state, params=dataclasses.replace(cell.state.params, gaussians=g))
+    # the larger scales need more instances than the bench capacity
+    opts = dataclasses.replace(cell.opts, instance_capacity=PAR_TRAIN_CAPACITY, tile_capacity=PAR_TRAIN_CAPACITY)
+    cell = dataclasses.replace(cell, state=state, opts=opts,
+                               step_fn=make_train_step(cell.cfg, cell.scene.table, cell.scene.pose_data, opts))
+    return dataclasses.replace(cell, gt=view_gt(cell, train.GT_FRAME))
+
+
+def view_gt(cell, i: int):
+    """Ground truth for the cell's view i: the eval render of frames[i]
+    plus noise (normal, sigma 0.05, from a CPU generator seeded with i;
+    clipped to [0, 1]), as the CPU tests' ground truth. The render's own
+    image would make the L1 gradient the sign of rounding noise wherever
+    two orders of sums differ by an ulp."""
+    import dataclasses
+
+    from street_gaussians_torch import serve
+    from street_gaussians_torch.models.renderer import render_frame
+
+    frame = cell.scene.frames[i]
+    with torch.no_grad():
+        image = render_frame(cell.state.params, cell.scene.aux, cell.scene.table, cell.scene.pose_data, frame,
+                             serve.SERVE_STEP, opts=dataclasses.replace(cell.opts, mode="eval"))["rgb"]
+    noise = 0.05 * torch.randn(tuple(image.shape), generator=torch.Generator().manual_seed(i))
+    return dataclasses.replace(cell.gt, image=torch.clamp(image + noise.to(image.device), 0.0, 1.0))
+
+
+def _launch_counts() -> dict:
+    from street_gaussians_torch.ops import fill, segsum, tile_raster2
+
+    return {k.__name__: k.launches for k in (fill.expand_runs, tile_raster2.tile_blend_instances,
+                                             tile_raster2.tile_blend_bwd, segsum.segment_rowsum)}
+
+
+def _zero_counts() -> None:
+    from street_gaussians_torch.ops import fill, segsum, tile_raster2
+
+    for k in (fill.expand_runs, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd,
+              segsum.segment_rowsum):
+        k.launches = 0
+
+
+def _state_hash(state) -> str:
+    import hashlib
+
+    from street_gaussians_torch.train_lib import flatten_params
+
+    h = hashlib.sha256()
+    for k, v in sorted(flatten_params(state.params).items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().numpy().tobytes())
+    for k in ("alive", "grad_accum", "denom", "max_radii"):
+        h.update(getattr(state.aux, k).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def camera_rank(rank: int, world: int, workdir: str, overrides: dict) -> None:
+    """Step 11c's rank (torch.multiprocessing.spawn): a Gloo group of
+    `world` ranks on cuda:0 (one card shared); the bench train cell (its scene entries
+    replaced by `overrides`), rank 0's state on every rank, this rank's
+    view PAR_VIEWS[rank], one camera-parallel step in one band and in two
+    (data x tile) from the same state and draws, then timed steps; saves
+    its launches, times, state hashes and (rank 0) the states."""
+    import dataclasses
+
+    from street_gaussians_torch.parallel import comm, dp
+    from street_gaussians_torch.train_lib import flatten_params
+
+    group = comm.init_group(rank, world, "file://" + os.path.join(workdir, "rendezvous"), device="cuda:0")
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cell = parallel_cell(group.device, **overrides)
+        state = dp.broadcast_state(cell.state, group)
+        frame, gt = cell.scene.frames[PAR_VIEWS[rank]], view_gt(cell, PAR_VIEWS[rank])
+        res = {"initial_hash": _state_hash(state), "steps": {}}
+        for D in (1, 2):
+            # each band at the frame's capacity (11a)
+            opts = dataclasses.replace(cell.opts, instance_capacity=D * cell.opts.instance_capacity)
+            step = dp.make_data_parallel_train_step(cell.cfg, cell.scene.table, cell.scene.pose_data, opts,
+                                                    group, tile_shards=D)
+            _zero_counts()
+            s1, sc = step(state, frame, gt, torch.Generator(device=group.device).manual_seed(0))
+            torch.cuda.synchronize()
+            out = {"launches": _launch_counts(), "hash": _state_hash(s1), "loss": float(sc["loss"]),
+                   "overflow": int(sc["overflow"])}
+            if rank == 0:
+                out["params"] = _numpy(flatten_params(s1.params))
+                out["aux"] = {k: getattr(s1.aux, k).cpu().numpy() for k in ("grad_accum", "denom", "max_radii")}
+            ms, s = [], s1
+            gen = torch.Generator(device=group.device).manual_seed(1)
+            for _ in range(PAR_TURNS):
+                torch.distributed.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s, _ = step(s, frame, gt, gen)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            out["ms"] = ms
+            res["steps"][D] = out
+        torch.save(res, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        comm.close_group()
+
+
+def serve_bands(dev, scene, params) -> dict:
+    """11a: the bench frame in 2 and 4 bands in turn. At the frame's
+    capacity split D ways (the JAX package's band capacity) the bands
+    drop instances: the summed counters say how many. At a band capacity
+    from each band's demand (sum(tiles_touched) of its clipped screen,
+    render_sets' probe) the joined bands against the whole frame, at
+    sky_downsample 1 (every row) and 2 (the serving options: every row
+    but band_edge_rows'), radii equal, the counters summed and 0;
+    kernels 2.1 and 2.3 against their plain versions on each band's own
+    inputs (4 bands: the last reaches past the image); an empty band (a
+    32-row frame in 4 bands); ms/view and peak memory at D = 1, 2, 4 in
+    turns."""
+    import dataclasses
+
+    from street_gaussians_torch import serve
+    from street_gaussians_torch.models.renderer import render_frame, screen_space
+    from street_gaussians_torch.models.sky_cubemap import build_sky_table
+    from street_gaussians_torch.ops import fill, tile_raster2
+    from street_gaussians_torch.ops.preprocess import clip_screen_to_rows
+    from street_gaussians_torch.parallel import tiles
+
+    frame = scene.frames[0]
+    H = frame.cam.H
+    with torch.no_grad():
+        sky_table = build_sky_table(params.sky.cubemap)
+
+    def renderer(opts, D, sc=scene, pr=params, table=sky_table):
+        if D == 1:
+            return lambda f: render_frame(pr, sc.aux, sc.table, sc.pose_data, f, serve.SERVE_STEP, opts=opts,
+                                          sky_table=table)
+        band = tiles.make_row_sharded_render(sc.table, sc.pose_data, opts, D)
+        return lambda f: band(pr, sc.aux, f, sky_table=table)
+
+    C = serve.SERVE_OPTS.instance_capacity
+    err, launches, out = {"expand_runs": 0.0, "tile_blend_instances": 0.0}, {}, {"split_capacity": {}}
+    band_opts = {1: serve.SERVE_OPTS}
+    with torch.no_grad():
+        whole = renderer(serve.SERVE_OPTS, 1)(frame)
+        screen, _ = screen_space(params, scene.aux, scene.table, scene.pose_data, frame, serve.SERVE_STEP,
+                                 serve.SERVE_OPTS)
+        for D in PAR_BANDS:
+            lay = tiles.band_layout(H, D)
+            need = [int(clip_screen_to_rows(screen, *lay.band(d)).tiles_touched.sum()) for d in range(D)]
+            cap = tiles.band_capacity(C, D)
+            got = renderer(serve.SERVE_OPTS, D)(frame)
+            if int(got["num_instances"]) != int(whole["num_instances"]):
+                raise AssertionError(f"{D} bands: {int(got['num_instances'])} instances, the whole frame "
+                                     f"{int(whole['num_instances'])}")
+            out["split_capacity"][D] = {"band_capacity": cap, "band_demand": need,
+                                        "overflow_instance": int(got["overflow_instance"])}
+            log(f"[parallel] bench frame in {D} bands at the capacity {C} split {D} ways ({cap} a band): band "
+                f"demands (sum of tiles_touched) {need}; instances {int(got['num_instances'])}, dropped "
+                f"{int(got['overflow_instance'])} (the summed counter)")
+            band_opts[D] = dataclasses.replace(serve.SERVE_OPTS, instance_capacity=D * _round_up(max(need), 128))
+        del screen
+        for ds in (1, 2):
+            whole = renderer(dataclasses.replace(serve.SERVE_OPTS, sky_downsample=ds), 1)(frame)
+            for D in PAR_BANDS:
+                opts = dataclasses.replace(band_opts[D], sky_downsample=ds)
+                torch.cuda.synchronize()
+                _zero_counts()
+                got = renderer(opts, D)(frame)
+                torch.cuda.synchronize()
+                n = _launch_counts()
+                launches[f"D{D}_ds{ds}"] = n
+                if n["tile_blend_instances"] != D or n["expand_runs"] < D:
+                    raise AssertionError(f"a view in {D} bands launched {n}")
+                if not torch.equal(got["radii"], whole["radii"]):
+                    raise AssertionError(f"{D} bands: radii differ from the whole frame's")
+                if int(got["overflow"]) != 0 or int(got["num_instances"]) != int(whole["num_instances"]):
+                    raise AssertionError(f"{D} bands: overflow {int(got['overflow'])}, instances "
+                                         f"{int(got['num_instances'])} vs {int(whole['num_instances'])}")
+                what = f"bench frame in {D} bands against the whole frame, sky_downsample {ds}"
+                if ds == 1:
+                    compare_frames(got, whole, what)
+                else:
+                    edges = band_edge_rows(H, D)
+                    keep = torch.ones(H, dtype=torch.bool, device=dev)
+                    keep[edges] = False
+                    compare_frames(got, whole, f"{what}, rows {edges} left out", keep)
+                    d = (got["rgb"][edges] - whole["rgb"][edges]).abs().max()
+                    log(f"[parallel] {what}: rows {edges} (band edges, the reference's own upsample) differ by "
+                        f"up to {float(d):.3e}")
+
+        # kernels 2.1 and 2.3 on each band's own inputs (4 bands)
+        recs = {"expand_runs": CallRecorder(fill.expand_runs, [fill]),
+                "forward": CallRecorder(tile_raster2._forward, [tile_raster2])}
+        try:
+            renderer(band_opts[4], 4)(frame)
+        finally:
+            for r in recs.values():
+                r.restore()
+        lay = tiles.band_layout(H, 4)
+        for d, ((a_args, _), (b_args, _)) in enumerate(zip(recs["expand_runs"].calls, recs["forward"].calls)):
+            where = f"band {d} of 4 (tile rows {lay.band(d)}{', past the image' if (d + 1) * lay.gy_local > lay.gy else ''})"
+            if not torch.equal(fill.expand_runs(*a_args), fill.expand_runs_plain(*a_args)):
+                raise AssertionError(f"expand_runs kernel != plain on the bench frame's {where}")
+            err["tile_blend_instances"] = max(err["tile_blend_instances"], compare_blend(
+                tile_raster2.tile_blend_instances(*b_args), tile_raster2.tile_blend_plain(*b_args), b_args[3],
+                f"tile_blend bench frame's {where} ({b_args[5]} tiles, {int(b_args[2].sum())} instances)"))
+        log(f"[check] expand_runs on the bench frame's 4 bands' own inputs: exact")
+
+        # an empty band: a 32-row frame in 4 bands (bands 2 and 3 past it)
+        sc, pr = serve.bench_scene(seed=3, device=dev, sky_resolution=16, num_bkgd=600, num_actors=2, H=32, W=48)
+        small_table = build_sky_table(pr.sky.cubemap)
+        ds1 = dataclasses.replace(serve.SERVE_OPTS, sky_downsample=1)
+        recs = {"forward": CallRecorder(tile_raster2._forward, [tile_raster2]),
+                "expand_runs": CallRecorder(fill.expand_runs, [fill])}
+        try:
+            _zero_counts()
+            got = renderer(ds1, 4, sc, pr, small_table)(sc.frames[1])
+            n = _launch_counts()
+        finally:
+            for r in recs.values():
+                r.restore()
+        whole = renderer(ds1, 1, sc, pr, small_table)(sc.frames[1])
+        compare_frames(got, whole, "a 32x48 frame in 4 bands (bands 2 and 3 empty) against the whole frame, "
+                                   "sky_downsample 1")
+        counts = [int(a[2].sum()) for a, _ in recs["forward"].calls]
+        if n["tile_blend_instances"] != 4 or counts[2:] != [0, 0] or min(counts[:2]) == 0:
+            raise AssertionError(f"the 32-row frame's bands: {n}, instances {counts}")
+        for a, _ in recs["forward"].calls[2:]:
+            err["tile_blend_instances"] = max(err["tile_blend_instances"], compare_blend(
+                tile_raster2.tile_blend_instances(*a), tile_raster2.tile_blend_plain(*a), a[3],
+                f"tile_blend on an empty band ({a[5]} tiles)"))
+        for a, _ in recs["expand_runs"].calls[2:]:
+            if not torch.equal(fill.expand_runs(*a), fill.expand_runs_plain(*a)):
+                raise AssertionError("expand_runs kernel != plain on an empty band")
+        log(f"[check] empty bands: instances per band {counts}, launches {n}; kernels equal their plain versions")
+        del sc, pr, small_table, got, whole
+
+        # times and peak memory, in turns
+        fns = {D: renderer(band_opts[D], D) for D in (1, *PAR_BANDS)}
+        ms = {D: [] for D in fns}
+        peak = {D: 0 for D in fns}
+        for D, fn in fns.items():
+            fn(frame)
+        for _ in range(PAR_TURNS):
+            for D, fn in fns.items():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                fn(frame)
+                e1.record()
+                torch.cuda.synchronize()
+                ms[D].append(e0.elapsed_time(e1))
+                peak[D] = max(peak[D], torch.cuda.max_memory_allocated(dev) / 2**30)
+    out.update(view_ms={D: sum(v) / len(v) for D, v in ms.items()}, view_ms_turns=ms, peak_gib=peak,
+               instance_capacity={D: o.instance_capacity for D, o in band_opts.items()})
+    log(f"[parallel] serving the bench frame in bands (instance_capacity {out['instance_capacity']}), "
+        f"{PAR_TURNS} turns: ms/view "
+        + ", ".join(f"D={D} {out['view_ms'][D]:.3f}" for D in ms) + "; peak GiB "
+        + ", ".join(f"D={D} {peak[D]:.3f}" for D in peak))
+    return {"errors": err, "launches": launches, "numbers": out}
+
+
+def train_bands(dev) -> tuple:
+    """11b: the bench train cell's step in 2 bands in turn against the
+    whole-frame step on the same draws: loss (rtol 1e-5), gradients
+    (grads_close), parameters after the step (params_close), radii and
+    counts equal; kernels 2.2 and 2.4 against their plain versions on
+    the band step's own inputs; ms/step at D = 1 and 2 in turns. Returns
+    (the cell, the results)."""
+    import dataclasses
+
+    from street_gaussians_torch.ops import rasterize, segsum, tile_raster2
+    from street_gaussians_torch.models import sky_cubemap
+    from street_gaussians_torch.parallel import tiles
+    from street_gaussians_torch.train_lib import flatten_params, make_lr_tree, take_draws
+
+    cell = parallel_cell(dev)
+    table, pose = cell.scene.table, cell.scene.pose_data
+    # each band at the frame's capacity: the frame's split in two drops
+    # instances (11a)
+    band_step = tiles.make_tile_sharded_train_step(
+        cell.cfg, table, pose, dataclasses.replace(cell.opts, instance_capacity=2 * cell.opts.instance_capacity), 2)
+    draws = take_draws(table, cell.state, cell.frame.cam, torch.Generator(device=dev).manual_seed(1), cell.opts)
+    whole = cell.step_fn.loss_and_grads(cell.state, cell.frame, cell.gt, draws=draws)
+    recs = {"tile_blend_bwd": CallRecorder(tile_raster2.tile_blend_bwd, [tile_raster2]),
+            "segment_rowsum": CallRecorder(segsum.segment_rowsum, [rasterize, sky_cubemap])}
+    try:
+        torch.cuda.synchronize()
+        _zero_counts()
+        band = band_step.loss_and_grads(cell.state, cell.frame, cell.gt, draws=draws)
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+    finally:
+        for r in recs.values():
+            r.restore()
+    if (launches["tile_blend_instances"], launches["tile_blend_bwd"], launches["segment_rowsum"]) != (2, 2, 4):
+        raise AssertionError(f"the bench step in 2 bands launched {launches}")
+    if not torch.equal(band[1]["radii"], whole[1]["radii"]) or int(band[1]["overflow"]) + int(whole[1]["overflow"]):
+        raise AssertionError(f"bench step in 2 bands: radii differ, or instances dropped (bands "
+                             f"{int(band[1]['overflow'])}, whole frame {int(whole[1]['overflow'])})")
+    lw, lb = float(whole[0]["loss"].detach()), float(band[0]["loss"].detach())
+    if not math.isclose(lb, lw, rel_tol=1e-5):
+        raise AssertionError(f"bench step loss in 2 bands {lb} vs whole frame {lw}")
+    alive = cell.state.aux.alive.cpu().numpy()
+    for k, g in whole[2].items():
+        w = g.cpu().numpy()
+        b = band[2][k].cpu().numpy()
+        if k.startswith("gaussians."):
+            m = alive.reshape((-1,) + (1,) * (w.ndim - 1))
+            w, b = w * m, b * m
+        if np.abs(w).max() > 0:
+            grads_close(by_row(k, b), by_row(k, w), f"bench step in 2 bands: grad {k}")
+    for i, name in ((3, "mean2d"), (4, "AbsGS")):
+        grads_close(band[i].cpu().numpy(), whole[i].cpu().numpy(), f"bench step in 2 bands: grad {name}")
+    g_ref = {k: v.cpu().numpy() for k, v in whole[2].items()}
+    n_inst = int(whole[1]["num_instances"])
+    del whole, band
+
+    err = {"tile_blend_bwd": 0.0, "segment_rowsum": 0.0}
+    with torch.no_grad():
+        for args, kw in recs["tile_blend_bwd"].calls:
+            payload, starts, counts, out, gout, F, gx, T = args
+            err["tile_blend_bwd"] = max(err["tile_blend_bwd"], compare_blend_bwd(
+                tile_raster2.tile_blend_bwd(*args, **kw), tile_raster2.tile_blend_bwd_plain(*args),
+                live_lanes(payload, starts, counts), F, f"tile_blend_bwd on a band of the bench step ({T} tiles)"))
+        for args, kw in recs["segment_rowsum"].calls:
+            d, keys = args[0], args[1]
+            N = kw["num_segments"]
+            what = "payload" if N == cell.scene.table.capacity else "sky (the band's row window)"
+            what = f"segment_rowsum on a band of the bench step, {what} (C={d.shape[0]}, L={d.shape[1]}, N={N})"
+            got = segsum.segment_rowsum(d, keys, num_segments=N)
+            err["segment_rowsum"] = max(err["segment_rowsum"], compare_segsum(
+                got, segsum.segment_rowsum_plain(d, keys, num_segments=N),
+                segsum.segment_rowsum_plain(d.abs(), keys, num_segments=N), what))
+            check_emulated(got, d, keys, N, what)
+    del recs
+
+    s_whole, _ = cell.step_fn(cell.state, cell.frame, cell.gt, draws=draws)
+    s_band, sc = band_step(cell.state, cell.frame, cell.gt, draws=draws)
+    lr = {k: float(torch.as_tensor(v).max()) for k, v in
+          make_lr_tree(cell.cfg, table, cell.state.params, cell.state.aux, cell.state.step).items()}
+    pw, pb = flatten_params(s_whole.params), flatten_params(s_band.params)
+    for k in pw:
+        params_close(by_row(k, pb[k].cpu().numpy()), by_row(k, pw[k].cpu().numpy()), by_row(k, g_ref[k]), lr[k], 1,
+                     f"bench step in 2 bands: {k}")
+    if not torch.equal(s_band.aux.denom, s_whole.aux.denom):
+        raise AssertionError("bench step in 2 bands: visibility counts differ")
+    grads_close(s_band.aux.grad_accum.cpu().numpy(), s_whole.aux.grad_accum.cpu().numpy(),
+                "bench step in 2 bands: grad_accum")
+    log(f"[check] bench train step in 2 bands against the whole frame, same draws ({n_inst} instances): loss "
+        f"{lb:.7f} vs {lw:.7f}; "
+        f"gradients, parameters and statistics within grads_close / params_close; launches {launches}")
+    del s_whole, s_band
+
+    steps = {1: cell.step_fn, 2: band_step}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    ms = {1: [], 2: []}
+    state = cell.state
+    for D, fn in steps.items():
+        fn(state, cell.frame, cell.gt, gen)
+    for _ in range(PAR_TURNS):
+        for D, fn in steps.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(state, cell.frame, cell.gt, gen)
+            torch.cuda.synchronize()
+            ms[D].append(1e3 * (time.perf_counter() - t0))
+    out = {"step_ms": {D: sum(v) / len(v) for D, v in ms.items()}, "step_ms_turns": ms}
+    log(f"[parallel] bench train step, {PAR_TURNS} turns: ms/step D=1 {out['step_ms'][1]:.3f}, "
+        f"D=2 {out['step_ms'][2]:.3f}")
+    return cell, {"errors": err, "launches": {"train_D2": launches}, "numbers": out}
+
+
+def camera_ranks(dev, cell, tmp) -> dict:
+    """11c: two ranks on cuda:0 (Gloo: NCCL refuses two ranks on one
+    card), one bench view each, one camera-parallel step in one band and
+    in two: the ranks bit-equal, and the one-band step against the
+    in-process reference (loss_and_grads of each view on the same draws,
+    the gradients averaged, the statistics summed, one Adam step) by
+    grads_close / params_close; the two-band step against the one-band
+    one. Their ms/step: two ranks sharing one card, not a scaling
+    figure."""
+    from street_gaussians_torch.optim.adam import adam_update
+    from street_gaussians_torch.optim.densify import add_stats, step_stats
+    from street_gaussians_torch.train_lib import flatten_params, make_lr_tree, take_draws
+
+    workdir = os.path.join(tmp, "ranks")
+    os.makedirs(workdir)
+    torch.multiprocessing.spawn(camera_rank, args=(2, workdir, {}), nprocs=2, join=True)
+    ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    if _state_hash(cell.state) != ranks[0]["initial_hash"] or ranks[1]["initial_hash"] != ranks[0]["initial_hash"]:
+        raise AssertionError("the ranks' initial states differ from the reference's")
+    for D in (1, 2):
+        a, b = (r["steps"][D] for r in ranks)
+        if a["hash"] != b["hash"]:
+            raise AssertionError(f"camera-parallel step ({D} band(s)): the ranks' states are not bit-equal")
+        for r, x in enumerate((a, b)):
+            n = x["launches"]
+            if n["tile_blend_instances"] != D or n["tile_blend_bwd"] != D or n["segment_rowsum"] != 2 * D:
+                raise AssertionError(f"rank {r}, {D} band(s): launches {n}")
+            if x["overflow"] != 0:
+                raise AssertionError(f"rank {r}, {D} band(s): overflow {x['overflow']}")
+
+    # the in-process reference: both views' gradients averaged
+    table, state = cell.scene.table, cell.state
+    grads, stats, in_range, losses = [], [], [], []
+    for b, v in enumerate(PAR_VIEWS):
+        frame, gt = cell.scene.frames[v], view_gt(cell, v)
+        draws = take_draws(table, state, frame.cam, torch.Generator(device=dev).manual_seed(0), cell.opts, 2, b)
+        sc, out, g, g_m2d, g_abs = cell.step_fn.loss_and_grads(state, frame, gt, draws=draws)
+        losses.append(float(sc["loss"].detach()))
+        with torch.no_grad():
+            grads.append(g)
+            stats.append(step_stats(out["radii"], g_m2d, g_abs, frame.cam.W, frame.cam.H))
+            mid = state.aux.model_id
+            in_range.append((frame.cam.frame >= table.start_frame[mid]) & (frame.cam.frame <= table.end_frame[mid]))
+    with torch.no_grad():
+        g = {k: (grads[0][k] + grads[1][k]) / 2 for k in grads[0]}
+        aux = add_stats(state.aux, stats[0][0] + stats[1][0], stats[0][1] + stats[1][1],
+                        torch.maximum(stats[0][2], stats[1][2]))
+        values = flatten_params(state.params)
+        row_mask = aux.alive & (in_range[0] | in_range[1])
+        lr = make_lr_tree(cell.cfg, table, state.params, aux, state.step)
+        ref, _ = adam_update(values, g, state.adam, lr, {k: row_mask for k in values if k.startswith("gaussians.")})
+    loss_ref = sum(losses) / 2
+    got = ranks[0]["steps"][1]
+    if not math.isclose(got["loss"], loss_ref, rel_tol=1e-5):
+        raise AssertionError(f"camera-parallel loss {got['loss']} vs the reference's {loss_ref}")
+    for k, v in ref.items():
+        lr_k = float(torch.as_tensor(lr[k]).max())
+        g_k = by_row(k, g[k].cpu().numpy())
+        params_close(by_row(k, got["params"][k]), by_row(k, v.cpu().numpy()), g_k, lr_k, 1,
+                     f"camera-parallel step: {k}")
+        params_close(by_row(k, ranks[0]["steps"][2]["params"][k]), by_row(k, got["params"][k]), g_k, lr_k, 1,
+                     f"camera-parallel step in 2 bands: {k}")
+    if not np.array_equal(got["aux"]["denom"], aux.denom.cpu().numpy()):
+        raise AssertionError("camera-parallel step: visibility counts differ from the reference's")
+    if not np.array_equal(got["aux"]["max_radii"], aux.max_radii.cpu().numpy()):
+        raise AssertionError("camera-parallel step: max radii differ from the reference's")
+    grads_close(got["aux"]["grad_accum"], aux.grad_accum.cpu().numpy(), "camera-parallel step: grad_accum")
+    out = {"step_ms": {D: [r["steps"][D]["ms"] for r in ranks] for D in (1, 2)},
+           "launches": {f"rank{r}_D{D}": ranks[r]["steps"][D]["launches"] for r in range(2) for D in (1, 2)}}
+    mean = {D: sum(sum(m) for m in out["step_ms"][D]) / (2 * PAR_TURNS) for D in (1, 2)}
+    out["step_ms_mean"] = mean
+    log(f"[parallel] camera-parallel step, 2 ranks on one card (Gloo), one bench view each: the ranks bit-equal; "
+        f"loss {got['loss']:.7f} vs the in-process reference's {loss_ref:.7f}; parameters and statistics within "
+        f"params_close / grads_close; in 2 bands within params_close of the one-band step. ms/step (two ranks "
+        f"sharing one card, not a scaling figure): 1 band {mean[1]:.1f}, 2 bands {mean[2]:.1f}")
+    return out
+
+
+def runner_parallel(dev, root: str, tmp: str) -> dict:
+    """11d: step 8's sequence (PAR_FRAMES frames of 3 cameras) through
+    the CLIs: `train` at train.tile_shards 2 for PAR_ITERS iterations
+    (in-process: the kernels' launches counted), the same under
+    `torchrun --nproc_per_node 2` at train.batch_size 2 (rank 0 alone
+    writes), and `render` with and without render.parallel tile=2 from
+    the first run's checkpoint: the PNGs within 1 (u8), sky_downsample
+    1."""
+    import glob
+
+    from street_gaussians_torch import render as render_cli
+    from street_gaussians_torch import train as train_cli
+    from street_gaussians_torch.utils.image_io import imread
+
+    recipe = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "example", "waymo_train_002.yaml")
+
+    def opts(out):
+        return ["source_path", root, "model_path", out, "data.selected_frames", f"[0, {PAR_FRAMES - 1}]",
+                "data.use_tracker", "false", "train.iterations", str(PAR_ITERS), "train.test_iterations", "[]",
+                "train.save_iterations", "[]", "train.checkpoint_iterations", f"[{PAR_ITERS}]",
+                "render.instance_capacity", str(PAR_CAPACITY), "render.save_video", "false"]
+
+    res = {}
+    out_t = os.path.join(tmp, "par_tile")
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    final = train_cli.main(["--config", recipe, *opts(out_t), "train.tile_shards", "2"])
+    torch.cuda.synchronize()
+    res["tile_shards_s"] = time.perf_counter() - t0
+    n = _launch_counts()
+    res["tile_shards_launches"] = n
+    if (n["tile_blend_instances"] < 2 * PAR_ITERS or n["tile_blend_bwd"] != 2 * PAR_ITERS
+            or n["segment_rowsum"] != 4 * PAR_ITERS):
+        raise AssertionError(f"train.tile_shards 2, {PAR_ITERS} iterations: launches {n}")
+    with open(os.path.join(out_t, "record", "train_log.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    if len(recs) != 1 or not math.isfinite(recs[0]["loss"]) or recs[0]["overflow"] != 0:
+        raise AssertionError(f"train.tile_shards 2: log {recs}")
+    log(f"[parallel] train --config waymo_train_002.yaml train.tile_shards 2: {PAR_ITERS} iterations in "
+        f"{res['tile_shards_s']:.1f} s, loss {recs[0]['loss']:.6f}, launches {n}")
+
+    out_b = os.path.join(tmp, "par_batch")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+           "-m", "street_gaussians_torch.train", "--config", recipe, *opts(out_b), "train.batch_size", "2"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    res["torchrun_s"] = time.perf_counter() - t0
+    lines = [ln for ln in (proc.stdout + proc.stderr).splitlines() if ln.startswith(("[comm]", "[dp]", "[eval"))]
+    for ln in lines:
+        log(f"[parallel] torchrun: {ln}")
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun train.batch_size 2 failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    with open(os.path.join(out_b, "record", "train_log.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    if len(recs) != 1 or not math.isfinite(recs[0]["loss"]) or recs[0]["overflow"] != 0:
+        raise AssertionError(f"torchrun train.batch_size 2: the log holds {recs} (one record from rank 0 expected)")
+    if not os.path.isdir(os.path.join(out_b, "trained_model", f"iteration_{PAR_ITERS}")):
+        raise AssertionError("torchrun train.batch_size 2: no checkpoint")
+    log(f"[parallel] torchrun --nproc_per_node 2 train train.batch_size 2: {PAR_ITERS} iterations, "
+        f"{res['torchrun_s']:.1f} s wall (two processes on one card); one log, loss {recs[0]['loss']:.6f}")
+
+    pngs = {}
+    for par in ("", "tile=2"):
+        _zero_counts()
+        render_cli.main(["--config", recipe, *opts(out_t), *(["render.parallel", par] if par else [])])
+        n = _launch_counts()
+        d = os.path.join(out_t, "train_renders")
+        pngs[par] = {os.path.basename(p): imread(p).astype(int) for p in sorted(glob.glob(os.path.join(d, "*.png")))}
+        shutil.move(d, d + (par.replace("=", "") or "_whole"))
+        res[f"render_launches_{par or 'whole'}"] = n
+        if n["tile_blend_instances"] < (2 if par else 1) * len(pngs[par]):
+            raise AssertionError(f"render {par}: launches {n} for {len(pngs[par])} views")
+    if list(pngs[""]) != list(pngs["tile=2"]) or len(pngs[""]) != 3 * PAR_FRAMES:
+        raise AssertionError(f"render: {len(pngs[''])} and {len(pngs['tile=2'])} PNGs")
+    worst = max(int(np.abs(pngs[""][k] - pngs["tile=2"][k]).max()) for k in pngs[""])
+    if worst > 1:
+        raise AssertionError(f"render.parallel tile=2: PNGs differ by {worst} from those rendered without it")
+    log(f"[parallel] render with and without render.parallel tile=2: {len(pngs[''])} PNGs each, within {worst} "
+        "(u8); launches " + json.dumps({k: v for k, v in res.items() if k.startswith("render_launches")}))
+    res["final_param_checksum"] = final["param_checksum"]
+    return res
+
+
+def parallel_phase(dev, scene, params, root: str, tmp: str, smi: str) -> dict:
+    """Step 11 (see serve_bands, train_bands, camera_ranks and
+    runner_parallel). Returns the kernels' errors and launches on the
+    band paths and the numbers printed."""
+    t0 = time.perf_counter()
+    a = serve_bands(dev, scene, params)
+    torch.cuda.empty_cache()
+    cell, b = train_bands(dev)
+    torch.cuda.empty_cache()
+    c = camera_ranks(dev, cell, tmp)
+    del cell
+    torch.cuda.empty_cache()
+    d = runner_parallel(dev, root, tmp)
+    numbers = {"card": smi, "serve": a["numbers"], "train": b["numbers"], "camera_ranks": c, "runner": d,
+               "seconds": time.perf_counter() - t0}
+    log(f"[parallel] step 11 in {numbers['seconds']:.1f} s ({smi})")
+    return {"errors": {**a["errors"], **b["errors"]},
+            "launches": {"serve": a["launches"], **b["launches"], **c["launches"],
+                         "runner_tile_shards": d["tile_shards_launches"]},
+            "numbers": numbers}
 
 
 if __name__ == "__main__":

@@ -21,7 +21,10 @@ blend channels (27 at 20 classes with normals). An eval render may
 sample the sky on a 1/N ray grid (sky_downsample N): 2 is an exact
 0.75/0.25 upsample, a larger N a bilinear one.
 
-Not ported yet: tile-row sharding.
+A tile-row band (`row_shard`, parallel/tiles.py) renders the image rows
+of tile rows [start, start + rows): the screen is clipped to the band
+(ops/preprocess.clip_screen_to_rows) and the sky sampled on the band's
+rows only.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ from street_gaussians_torch.models.corrections import (
     correct_gaussian_xyz,
 )
 from street_gaussians_torch.models.sky_cubemap import SkyParams, render_sky
-from street_gaussians_torch.ops.preprocess import preprocess_gaussians
+from street_gaussians_torch.ops.preprocess import TILE, clip_screen_to_rows, preprocess_gaussians
 from street_gaussians_torch.ops.rasterize import RasterizeConfig, rasterize
 from street_gaussians_torch.utils import sh as sh_utils
 from street_gaussians_torch.utils.camera import Camera
@@ -395,6 +398,8 @@ def render_frame(
     absgrad_dummy: Optional[torch.Tensor] = None,
     include_mask: Optional[Union[np.ndarray, torch.Tensor]] = None,
     compose_sky: bool = True,
+    row_shard: Optional[Tuple[int, int]] = None,
+    screen_composed=None,
 ) -> Dict[str, torch.Tensor]:
     """Full render of one camera -> dict rgb/acc/depth/T/radii/...
 
@@ -405,21 +410,36 @@ def render_frame(
     mean2d_offset / absgrad_dummy: optional [C, 2] zeros whose gradients
     are the view-space mean gradient and its per-pixel-abs (AbsGS) sum.
     include_mask: optional [M] bool, the models to render.
-    compose_sky: False leaves the sky out."""
+    compose_sky: False leaves the sky out.
+    row_shard: (tile_row_start, num_tile_rows), a band of tile rows: the
+    outputs cover num_tile_rows * 16 image rows from tile_row_start * 16
+    (rows past cam.H included), radii and visibility the band's; in
+    train mode sky_jitter is the band's [num_tile_rows * 16, W, 2].
+    screen_composed: screen_space's (screen, composed) of this frame,
+    built by the caller (the bands of one frame share it); flip,
+    mean2d_offset and include_mask then went into it."""
     cam = frame_inp.cam
     train = opts.mode == "train"
     sky = params.sky if compose_sky else None
-    with record_function("screen_space"):
-        screen, composed = screen_space(
-            params, aux, table, pose_data, frame_inp, step, opts, flip, mean2d_offset, include_mask
-        )
+    if screen_composed is not None:
+        screen, composed = screen_composed
+    else:
+        with record_function("screen_space"):
+            screen, composed = screen_space(
+                params, aux, table, pose_data, frame_inp, step, opts, flip, mean2d_offset, include_mask
+            )
+    H_out, row_px0 = cam.H, 0
+    if row_shard is not None:
+        tile_row_start, num_tile_rows = row_shard
+        screen = clip_screen_to_rows(screen, tile_row_start, num_tile_rows)
+        H_out, row_px0 = num_tile_rows * TILE, tile_row_start * TILE
     dev = screen.depth.device
     # extra blend channels: normals first, then semantics
     extras = [composed[k] for k in ("normals", "semantic") if composed[k] is not None]
     bg = torch.full((3,), 1.0 if opts.white_background else 0.0, device=dev)
     out = rasterize(
         screen,
-        cam.H,
+        H_out,
         cam.W,
         bg_color=bg,
         extra_features=torch.cat(extras, dim=-1) if extras else None,
@@ -438,11 +458,14 @@ def render_frame(
             sky_rgb = render_sky(
                 sky, cam, downsample=ds, table=sky_table,
                 jitter=sky_jitter if train else None,
+                row_start=row_px0, num_rows=H_out if row_shard is not None else None,
             )
+            # a band upsamples its own small image: its edge rows clamp
+            # at the band's edge, as the JAX package's bands do
             if ds == 2:
-                sky_rgb = _upsample2x(sky_rgb)[: cam.H, : cam.W]
+                sky_rgb = _upsample2x(sky_rgb)[:H_out, : cam.W]
             elif ds > 1:
-                sky_rgb = _upsample_bilinear(sky_rgb, ds)[: cam.H, : cam.W]
+                sky_rgb = _upsample_bilinear(sky_rgb, ds)[:H_out, : cam.W]
             out["rgb"] = out["rgb"] + sky_rgb * out["T"][..., None]
 
     if params.color_correction is not None:

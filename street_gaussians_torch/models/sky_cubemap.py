@@ -207,10 +207,14 @@ def render_sky(
     downsample: int = 1,
     table: Optional[torch.Tensor] = None,
     jitter: Optional[torch.Tensor] = None,
+    row_start: int = 0,
+    num_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """Per-pixel sky color [H, W, 3], clamped to [0, 1] (jnp.clip's
     gradient: half at a tie); with downsample > 1 the small
     [ceil(H/N), ceil(W/N), 3] image that the caller upsamples.
-    jitter: optional [H, W, 2] train-time sub-pixel ray offsets."""
-    dirs = camera_rays(cam, downsample=downsample, jitter=jitter)
+    jitter: optional [H, W, 2] train-time sub-pixel ray offsets.
+    row_start / num_rows: a tile-row band's image rows (camera_rays);
+    H is then num_rows."""
+    dirs = camera_rays(cam, downsample=downsample, jitter=jitter, row_start=row_start, num_rows=num_rows)
     return jnp_clip(sample_cubemap(params.cubemap, dirs, table=table), 0.0, 1.0)

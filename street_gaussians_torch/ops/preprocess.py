@@ -240,3 +240,28 @@ def preprocess_gaussians(
         rect_max=rect_max,
         tiles_touched=torch.where(valid, tiles_touched, 0).to(torch.int32),
     )
+
+
+def clip_screen_to_rows(screen: GaussianScreenData, tile_row_start: int, num_tile_rows: int) -> GaussianScreenData:
+    """Restrict preprocessed Gaussians to the band of tile rows
+    [tile_row_start, tile_row_start + num_tile_rows) (parallel/tiles.py):
+    mean2d.y moves into the band's pixel frame, the y extent of the tile
+    rect is clipped to [0, num_tile_rows], and a Gaussian whose rect
+    misses the band becomes invalid (tiles_touched 0, radius 0)."""
+    y_off = float(tile_row_start * TILE)
+    mean2d = screen.mean2d - torch.tensor([0.0, y_off], dtype=screen.mean2d.dtype, device=screen.mean2d.device)
+    rmin_y = torch.clamp(screen.rect_min[:, 1] - tile_row_start, 0, num_tile_rows)
+    rmax_y = torch.clamp(screen.rect_max[:, 1] - tile_row_start, 0, num_tile_rows)
+    rect_min = torch.stack([screen.rect_min[:, 0], rmin_y], dim=-1)
+    rect_max = torch.stack([screen.rect_max[:, 0], rmax_y], dim=-1)
+    wh = rect_max - rect_min
+    tiles = wh[:, 0] * wh[:, 1]
+    valid = screen.valid & (tiles > 0)
+    return screen._replace(
+        mean2d=mean2d,
+        rect_min=rect_min,
+        rect_max=rect_max,
+        tiles_touched=torch.where(valid, tiles, 0).to(torch.int32),
+        valid=valid,
+        radius=torch.where(valid, screen.radius, torch.zeros((), dtype=screen.radius.dtype, device=screen.radius.device)),
+    )

@@ -59,27 +59,33 @@ def draw_noise(capacity: int, generator: torch.Generator, device) -> DensifyNois
     )
 
 
-def accumulate_stats(
-    aux: GaussianAux,
+def step_stats(
     radii: torch.Tensor,
     viewspace_grad: torch.Tensor,
     viewspace_absgrad: torch.Tensor,
     W: int,
     H: int,
-) -> GaussianAux:
-    """Per-step densification statistics: pixel-space mean-gradient norm
-    and AbsGS sum (scaled by (W/2, H/2), the CUDA rasterizer's NDC
-    units), visibility count, max radius."""
+):
+    """One camera's densification statistics: the pixel-space
+    mean-gradient norm and AbsGS sum (scaled by (W/2, H/2), the CUDA
+    rasterizer's NDC units) [C, 2], the visibility count [C] and the
+    radius [C], each 0 where the Gaussian is not visible."""
     vis = radii > 0.0
     scale = torch.tensor([W / 2.0, H / 2.0], device=radii.device)
     g = viewspace_grad * scale[None, :]
     ga = viewspace_absgrad * scale[None, :]
     add = torch.stack([torch.linalg.norm(g, dim=-1), ga[:, 0] + ga[:, 1]], dim=-1)
+    return torch.where(vis[:, None], add, 0.0), vis.to(torch.float32), torch.where(vis, radii, 0.0)
+
+
+def add_stats(aux: GaussianAux, add: torch.Tensor, denom_add: torch.Tensor, radii: torch.Tensor) -> GaussianAux:
+    """Accumulate step_stats' three (summed over cameras, the radius the
+    max over them) into aux."""
     return dataclasses.replace(
         aux,
-        grad_accum=aux.grad_accum + torch.where(vis[:, None], add, 0.0),
-        denom=aux.denom + vis.to(torch.float32),
-        max_radii=torch.maximum(aux.max_radii, torch.where(vis, radii, 0.0)),
+        grad_accum=aux.grad_accum + add,
+        denom=aux.denom + denom_add,
+        max_radii=torch.maximum(aux.max_radii, radii),
     )
 
 

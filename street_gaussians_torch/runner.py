@@ -12,11 +12,20 @@ in frame order, per-channel PNGs and videos) and `evaluate_metrics`
 (PSNR, SSIM and, where its weights are found, LPIPS over the saved
 renders).
 
+The parallel modes (parallel/dp.py, parallel/tiles.py): `training`
+takes a camera batch (train.batch_size B) over a process group of B
+ranks, one camera a rank, and tile-row bands (train.tile_shards D) in
+turn in one process or over a band group of D ranks, and both at once
+(B ranks, each camera in D bands in its process); rank 0 alone writes
+the logs, checkpoints, PLY and evals. `make_eval_render` and so
+`render_sets` serve in bands with render.parallel "tile=N" (in turn in
+one process).
+
 Not ported (each raises NotImplementedError where a config asks for it):
-the batched, data-parallel, row- and tile-sharded and multi-host
-training branches and `render.parallel` (ROADMAP queue 1 item 6), the
-viewer bridge (item 7). The every-1000-iteration `log_images` grid is
-left out (item 7).
+the Gaussian-sharded modes (train.gauss_shards, render.parallel
+"gauss=N" and "gausstile=GxT") and train.multihost (ROADMAP queue 1
+item 6b), the viewer bridge (item 7). The every-1000-iteration
+`log_images` grid is left out (item 7).
 """
 
 from __future__ import annotations
@@ -63,7 +72,7 @@ from street_gaussians_torch.visualize import Visualizer, visualize_depth
 EVAL_STEP = 10**9  # SH degree fully active
 
 
-def _not_ported(what: str, item: int):
+def _not_ported(what: str, item):
     raise NotImplementedError(f"{what} is not ported to street_gaussians_torch yet (ROADMAP.md queue 1, item {item})")
 
 
@@ -200,12 +209,27 @@ def make_eval_render(cfg: Config, scene: Scene, include_mask=None):
     """The eval render: eval_render(params, aux, frame, sky_table=None)
     -> render_frame's dict, at step 10^9 with cfg's eval options, no
     autograd. sky_table: build_sky_table(params.sky.cubemap) of frozen
-    parameters (serving), else the table is built per call."""
-    if cfg.render.get("parallel", ""):
-        _not_ported(f"render.parallel={cfg.render.parallel!r} (the sharded renderers)", 6)
+    parameters (serving), else the table is built per call.
+    render.parallel "tile=N" renders every view in N tile-row bands in
+    turn (parallel/tiles.make_row_sharded_render: the whole frame's
+    outputs, the overflow counters summed over the bands)."""
     opts = render_opts_from_cfg(cfg, "eval")
     if include_mask is not None:
         include_mask = torch.as_tensor(include_mask, device=scene.table.start_frame.device)
+    par = str(cfg.render.get("parallel", "") or "")
+    if par:
+        kind, _, n = par.partition("=")
+        if kind in ("gauss", "gausstile"):
+            _not_ported(f"render.parallel={par!r} (the Gaussian-sharded renderers)", "6b")
+        if kind != "tile":
+            raise ValueError(f"render.parallel={par!r}: unknown kind {kind!r} "
+                             "(expected 'tile=N', 'gauss=N', or 'gausstile=GxT')")
+        if int(n or 1) > 1:
+            from street_gaussians_torch.parallel.tiles import make_row_sharded_render
+
+            inner = make_row_sharded_render(scene.table, scene.pose_data, opts, int(n), include_mask=include_mask)
+            print(f"[render] tile-sharded rendering in {int(n)} bands, in turn")
+            return torch.no_grad()(inner)
 
     @torch.no_grad()
     def eval_render(params, aux, frame_inp, sky_table=None):
@@ -256,14 +280,64 @@ def param_checksum(params: SceneParams) -> float:
                      for v in flatten_params(params).values()))
 
 
-def _check_single_camera(cfg: Config) -> None:
-    t = cfg.train
-    if int(t.get("batch_size", 1)) > 1 or t.get("multihost", False):
-        _not_ported("train.batch_size > 1 and train.multihost (camera data parallel)", 6)
-    if int(t.get("gauss_shards", 0) or 0) > 1 or int(t.get("tile_shards", 0) or 0) > 1:
-        _not_ported("train.gauss_shards and train.tile_shards (row- and tile-sharded training)", 6)
-    if cfg.get("viewer", {}).get("enabled"):
-        _not_ported("viewer.enabled (the SIBR viewer bridge)", 7)
+class _Plan:
+    """How training runs: `batch` cameras a step (one a rank of
+    `data_group`), each rendered in `tile_shards` bands (over
+    `band_group` or in turn)."""
+
+    def __init__(self, cfg: Config, group=None):
+        t = cfg.train
+        if t.get("multihost", False):
+            _not_ported("train.multihost (the multi-host view slicing)", "6b")
+        if int(t.get("gauss_shards", 0) or 0) > 1:
+            _not_ported("train.gauss_shards (Gaussian-sharded training)", "6b")
+        if cfg.get("viewer", {}).get("enabled"):
+            _not_ported("viewer.enabled (the SIBR viewer bridge)", 7)
+        B = int(t.get("batch_size", 1) or 1)
+        D = int(t.get("tile_shards", 0) or 0)
+        ranks = group.size if group is not None else 1
+        self.batch, self.tile_shards = 1, max(D, 1)
+        self.data_group = self.band_group = None
+        if B > 1:
+            if ranks > B:
+                raise RuntimeError(f"train.batch_size={B} over {ranks} ranks: launch {B} ranks")
+            if ranks == B:
+                self.batch, self.data_group = B, group
+                print(f"[dp] camera data parallel: {B} cameras a step, one a rank"
+                      + (f", each in {D} tile bands in turn" if D > 1 else ""), flush=True)
+            elif D > 1:
+                raise RuntimeError(f"train.tile_shards={D} with batch_size={B} needs {B} ranks, have {ranks}")
+            else:
+                # the JAX runner trains one camera a step when it has
+                # fewer devices than batch_size (runner.py:476-481)
+                print(f"[dp] train.batch_size={B} needs {B} ranks, have {ranks}: training one camera a step",
+                      flush=True)
+        if D > 1 and self.data_group is None:
+            if ranks == D:
+                self.band_group = group
+                print(f"[tile] tile-sharded training over {D} tile bands, one a rank", flush=True)
+            elif ranks == 1:
+                print(f"[tile] tile-sharded training in {D} tile bands, in turn", flush=True)
+            else:
+                raise RuntimeError(f"train.tile_shards={D} over {ranks} ranks: launch 1 or {D} ranks")
+        self.group = self.data_group or self.band_group
+        if ranks > 1 and self.group is None:
+            raise RuntimeError(f"a process group of {ranks} ranks needs train.batch_size {ranks} or "
+                               f"train.tile_shards {ranks}")
+
+    def make_step(self, cfg: Config, scene: Scene):
+        opts = render_opts_from_cfg(cfg, "train")
+        if self.data_group is not None:
+            from street_gaussians_torch.parallel.dp import make_data_parallel_train_step
+
+            return make_data_parallel_train_step(cfg, scene.table, scene.pose_data, opts, self.data_group,
+                                                 tile_shards=self.tile_shards)
+        if self.tile_shards > 1:
+            from street_gaussians_torch.parallel.tiles import make_tile_sharded_train_step
+
+            return make_tile_sharded_train_step(cfg, scene.table, scene.pose_data, opts, self.tile_shards,
+                                                group=self.band_group)
+        return make_train_step(cfg, scene.table, scene.pose_data, opts)
 
 
 class _Watchdog:
@@ -331,30 +405,40 @@ class _Watchdog:
         return grew
 
 
-def training(cfg: Config, progress: bool = True, device=None) -> Dict:
-    """Full training run on one camera per step (ref: train.py:24-225).
-    Returns the final metrics (ema_psnr, ema_loss, num_alive,
-    param_checksum) and, beside them, `timing` (seconds per stage, and
-    ms/step over each 10-iteration window), the watchdog's `growth`
-    events and the ground-truth cache's bytes."""
-    device = resolve_device(device)
-    _check_single_camera(cfg)
+def training(cfg: Config, progress: bool = True, device=None, group=None) -> Dict:
+    """Full training run (ref: train.py:24-225): one camera a step, or
+    with `group` (a parallel.comm.Group, its ranks each running this
+    function) the camera batch or band group of train.batch_size and
+    train.tile_shards (see _Plan); the ranks stay bit-equal, and rank 0
+    alone writes. Returns the final metrics (ema_psnr, ema_loss,
+    num_alive, param_checksum) and, beside them, `timing` (seconds per
+    stage, and ms/step over each 10-iteration window), the watchdog's
+    `growth` events and the ground-truth cache's bytes."""
+    device = group.device if group is not None else resolve_device(device)
+    plan = _Plan(cfg, group)
+    is_writer = group is None or group.rank == 0
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     t_begin = time.perf_counter()
     os.makedirs(cfg.model_path, exist_ok=True)
-    save_config(cfg, os.path.join(cfg.model_path, "configs", "config_train.yaml"))
+    if is_writer:
+        save_config(cfg, os.path.join(cfg.model_path, "configs", "config_train.yaml"))
     scene = build_scene(cfg, device)
-    try:
-        save_scene_artifacts(cfg, scene)
-    except Exception as exc:  # artifacts are viewer conveniences only
-        print(f"[warn] scene artifacts not written: {exc}")
+    if is_writer:
+        try:
+            save_scene_artifacts(cfg, scene)
+        except Exception as exc:  # artifacts are viewer conveniences only
+            print(f"[warn] scene artifacts not written: {exc}")
     params = build_initial_params(cfg, scene, device)
     state = init_train_state(params, scene.aux_init)
+    if plan.group is not None:
+        from street_gaussians_torch.parallel.dp import broadcast_state
+
+        state = broadcast_state(state, plan.group)
     sync()
     timing = {"load_s": time.perf_counter() - t_begin, "resume_s": 0.0, "eval_s": 0.0, "save_s": 0.0}
 
     def build_train_step():
-        return make_train_step(cfg, scene.table, scene.pose_data, render_opts_from_cfg(cfg, "train"))
+        return plan.make_step(cfg, scene)
 
     step_fn = build_train_step()
     densify_fn = make_densify_fn(cfg, scene.table)
@@ -379,16 +463,17 @@ def training(cfg: Config, progress: bool = True, device=None) -> Dict:
     view_stack: List[CameraView] = []
     log_path = os.path.join(cfg.record_dir, "train_log.jsonl")
     os.makedirs(cfg.record_dir, exist_ok=True)
-    log_f = open(log_path, "a")
+    log_f = open(log_path if is_writer else os.devnull, "a")
 
     # optional tensorboard (ref: train.py:227-260 prepare_output_and_logger)
     tb = None
-    try:
-        from torch.utils.tensorboard import SummaryWriter
+    if is_writer:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
 
-        tb = SummaryWriter(cfg.model_path)
-    except Exception:
-        pass
+            tb = SummaryWriter(cfg.model_path)
+        except Exception:
+            pass
 
     ema_loss, ema_psnr = 0.0, 0.0
     t_start = time.time()
@@ -404,7 +489,12 @@ def training(cfg: Config, progress: bool = True, device=None) -> Dict:
             if not view_stack:
                 view_stack = list(scene.train_views)
                 rng.shuffle(view_stack)
-            view = view_stack.pop()
+            if plan.batch > 1:
+                from street_gaussians_torch.parallel.dp import pop_batch
+
+                view = pop_batch(view_stack, plan.batch)[plan.data_group.rank]
+            else:
+                view = view_stack.pop()
             misses = gt_cache.misses
             gt = gt_cache.get(view)
             if gt_cache.misses != misses:
@@ -441,7 +531,7 @@ def training(cfg: Config, progress: bool = True, device=None) -> Dict:
                     step_fn = build_train_step()
                     eval_render = make_eval_render(cfg, scene)
                     marks.add("growth")
-            if progress and iteration % 100 == 0:
+            if progress and is_writer and iteration % 100 == 0:
                 dt = time.time() - t_start
                 print(f"iter {iteration}/{iters} loss {ema_loss:.5f} psnr {ema_psnr:.2f} "
                       f"alive {int(values['num_alive'])} {(iteration - start_iter) / max(dt, 1e-9):.2f} it/s",
@@ -454,7 +544,7 @@ def training(cfg: Config, progress: bool = True, device=None) -> Dict:
                     for k, v in values.items():
                         tb.add_scalar(f"train/{k}", v, iteration)
 
-            if iteration in cfg.train.test_iterations:
+            if iteration in cfg.train.test_iterations and is_writer:
                 t0 = time.perf_counter()
                 report = evaluate_psnr(cfg, scene, state, eval_render, gt_cache=gt_cache)
                 timing["eval_s"] += time.perf_counter() - t0
@@ -463,7 +553,8 @@ def training(cfg: Config, progress: bool = True, device=None) -> Dict:
                 log_f.flush()
                 marks.add("eval")
 
-            if iteration in cfg.train.save_iterations or iteration in cfg.train.checkpoint_iterations:
+            if is_writer and (iteration in cfg.train.save_iterations
+                              or iteration in cfg.train.checkpoint_iterations):
                 t0 = time.perf_counter()
                 if iteration in cfg.train.save_iterations:
                     ckpt_lib.save_point_cloud(cfg.point_cloud_dir, iteration, state.params.gaussians, state.aux,
@@ -600,8 +691,6 @@ def render_sets(cfg: Config, state: Optional[TrainState] = None, scene: Optional
     over the views but the first and any that regrew), fps_throughput
     (dispatch depth 8), and the per-view capacities and regrows."""
     device = resolve_device(device)
-    if cfg.render.get("parallel", ""):
-        _not_ported(f"render.parallel={cfg.render.parallel!r} (the sharded renderers)", 6)
     cuda = device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     scene = scene or build_trained_scene(cfg, device)

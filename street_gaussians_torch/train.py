@@ -5,7 +5,15 @@
 runs runner.training on the config (the JAX package's root train.py):
 defaults, then the YAML file with its parents, then the KEY VALUE
 overrides; checkpoints, PLY snapshots and train_log.jsonl land under
-model_path. Without --config:
+model_path. Under torchrun the ranks form a process group from its
+environment before the scene is built, each on cuda:LOCAL_RANK (cuda:0
+when the host has one card, shared by its ranks), and train together:
+
+    torchrun --standalone --nproc_per_node B -m street_gaussians_torch.train \
+        --config CONFIG.yaml train.batch_size B
+
+(or train.tile_shards B: one band a rank); rank 0 alone writes.
+Without --config:
 
     python -m street_gaussians_torch.train [--steps N] [--device cuda]
         [--profile TRACE.json]
@@ -29,6 +37,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import time
 
 import torch
@@ -134,7 +143,16 @@ def main(argv=None):
         from street_gaussians_torch.config import load_config
         from street_gaussians_torch.runner import training
 
-        return training(load_config(args.config, args.opts, "train"), device=resolve_device(args.device))
+        cfg = load_config(args.config, args.opts, "train")
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            from street_gaussians_torch.parallel import comm
+
+            group = comm.init_group(device=args.device)
+            try:
+                return training(cfg, group=group)
+            finally:
+                comm.close_group()
+        return training(cfg, device=resolve_device(args.device))
     if args.opts:
         ap.error(f"KEY VALUE overrides need --config: {args.opts}")
 

@@ -21,8 +21,10 @@ rendered as extra blend channels; no loss reads them (as in the JAX
 step), so their cotangents are zero and the semantic rows keep their
 values.
 
-Not ported yet (raise NotImplementedError): the row-sharded and
-parallel steps.
+The step is loss_and_grads (render, losses, autograd) followed by
+apply_gradients (statistics, masks, learning rates, Adam), which the
+camera data parallel step (parallel/dp.py) and the tile-band step
+(parallel/tiles.py) share.
 """
 
 from __future__ import annotations
@@ -50,9 +52,10 @@ from street_gaussians_torch.optim.adam import AdamState, adam_init, adam_update
 from street_gaussians_torch.optim.densify import (
     DensifyConfig,
     DensifyNoise,
-    accumulate_stats,
+    add_stats,
     densify_and_prune,
     reset_opacity,
+    step_stats,
 )
 from street_gaussians_torch.optim.schedule import expon_lr
 from street_gaussians_torch.utils import losses as L
@@ -278,17 +281,114 @@ def compute_losses(
     return loss, scalars
 
 
+def take_draws(table: G.SceneTable, state: TrainState, cam, generator: Optional[torch.Generator],
+               opts: RenderOptions, cameras: int = 1, index: int = 0) -> Draws:
+    """A step's random draws from `generator`, flip first, then the sky
+    jitter of a [cam.H, cam.W] image (a scene with a sky); none without
+    a generator or outside train mode. With `cameras` > 1 (a camera
+    batch, parallel/dp.py) the draws of all the batch's cameras are taken
+    in turn, so that every rank's generator stays in step with the
+    others', and those of camera `index` are returned."""
+    if opts.mode != "train" or generator is None:
+        return Draws(None, None)
+    dev = state.aux.alive.device
+    mine = None
+    for b in range(cameras):
+        flip = draw_flip(table, state.aux.model_id, generator)
+        jitter = draw_sky_jitter(cam.H, cam.W, generator, dev) if state.params.sky is not None else None
+        if b == index:
+            mine = Draws(flip, jitter)
+    return mine
+
+
+def apply_gradients(cfg: Config, table: G.SceneTable, state: TrainState, cam, scalars: dict, out: dict,
+                    g_params: Dict[str, torch.Tensor], g_m2d: torch.Tensor, g_abs: torch.Tensor,
+                    data_group=None):
+    """The post-gradient half of a train step, which the single, camera
+    data parallel and tile-band steps share: the densification
+    statistics (while step < densify_until_iter), the per-row masks, the
+    learning rates, the pose correction's weight decay and the masked
+    Adam update. `out` holds the render's radii and overflow counters.
+    With data_group (a parallel.comm.Group of cameras, one a rank), the
+    statistics are per-camera norms summed over the group (the radius
+    the max), the gradients and scalars are averaged, the overflow
+    counters summed and a row is active where its model is in range in
+    any camera (the JAX package's parallel/dp.py); every rank then
+    takes the same update. Returns (new state, {name: 0-dim tensor})."""
+    o = cfg.optim
+    step = state.step
+    collect = 1.0 if step < o.densify_until_iter else 0.0
+    add, denom_add, max_r = step_stats(
+        out["radii"] * collect, g_m2d * collect, g_abs * collect, cam.W, cam.H
+    )
+    mid = state.aux.model_id
+    in_range = (cam.frame >= table.start_frame[mid]) & (cam.frame <= table.end_frame[mid])
+    ovf = [out["overflow"], out["overflow_instance"], out["overflow_tile"]]
+    if data_group is not None:
+        add, denom_add, *ovf = data_group.all_reduce([add, denom_add, *ovf], "sum")
+        max_r, in_range = data_group.all_reduce([max_r, in_range.to(torch.float32)], "max")
+        in_range = in_range > 0
+        names = list(g_params)
+        g_params = dict(zip(names, data_group.all_reduce([g_params[k] for k in names], "mean")))
+        names = list(scalars)
+        scalars = dict(zip(names, data_group.all_reduce([scalars[k] for k in names], "mean")))
+    aux = add_stats(state.aux, add, denom_add, max_r)
+    # per-row activity: rows of models not visible at this frame get no
+    # gradient and no Adam step (torch's set_to_none)
+    row_mask = aux.alive & in_range
+    values = flatten_params(state.params)
+    mask = {k: row_mask for k in values if k.startswith(GAUSS)}
+    lr = make_lr_tree(cfg, table, state.params, aux, step)
+    for k in ("pose_correction.trans", "pose_correction.rots"):
+        if k in g_params:  # weight decay 0.01
+            g_params[k] = g_params[k] + 0.01 * values[k]
+    new_values, new_adam = adam_update(values, g_params, state.adam, lr, mask)
+
+    scalars["overflow"], scalars["overflow_instance"], scalars["overflow_tile"] = ovf
+    scalars["num_alive"] = aux.alive.sum()
+    scalars = {k: v.detach() for k, v in scalars.items()}
+    new_state = TrainState(
+        params=unflatten_params(new_values, state.params), adam=new_adam, aux=aux, step=step + 1
+    )
+    return new_state, scalars
+
+
+def step_around(loss_and_grads, cfg: Config, table: G.SceneTable, opts: RenderOptions, data_group=None):
+    """The train step around loss_and_grads(state, frame, gt, draws=):
+    step_fn(state, frame, gt, generator=None, *, draws=None) -> (new
+    state, {name: 0-dim tensor}): the draws (take_draws; with data_group
+    those of the rank's camera of the batch), the render's gradients,
+    the PSNR and apply_gradients."""
+    cameras, index = (1, 0) if data_group is None else (data_group.size, data_group.rank)
+
+    def step_fn(state: TrainState, frame: FrameInput, gt: GroundTruth,
+                generator: Optional[torch.Generator] = None, *, draws: Optional[Draws] = None):
+        if draws is None:
+            draws = take_draws(table, state, frame.cam, generator, opts, cameras, index)
+        scalars, out, g_params, g_m2d, g_abs = loss_and_grads(state, frame, gt, draws=draws)
+        with torch.no_grad(), record_function("optimizer"):
+            scalars["psnr"] = L.psnr(out["rgb"], gt.image, gt.mask)
+            return apply_gradients(cfg, table, state, frame.cam, scalars, out, g_params, g_m2d, g_abs,
+                                   data_group)
+
+    step_fn.loss_and_grads = loss_and_grads
+    return step_fn
+
+
 def make_train_step(
     cfg: Config,
     table: G.SceneTable,
     pose_data: Optional[ActorPoseData],
     opts: RenderOptions,
+    data_group=None,
 ):
     """The single-camera train step:
     step_fn(state, frame, gt, generator=None, *, draws=None) ->
     (new state, {name: 0-dim tensor}). The random draws come from
     `generator` (flip first, then the sky jitter) unless `draws` gives
-    them; with neither, the step draws none (no flip, no jitter)."""
+    them; with neither, the step draws none (no flip, no jitter).
+    data_group: camera data parallel over a parallel.comm.Group (see
+    apply_gradients and parallel/dp.py)."""
     o = cfg.optim
     C = table.capacity
     obj_mask = None
@@ -310,13 +410,7 @@ def make_train_step(
         m2d_off = torch.zeros((C, 2), device=dev, requires_grad=True)
         abs_dummy = torch.zeros((C, 2), device=dev, requires_grad=True)
         if draws is None:
-            # drawn here, flip first, so that the object render reuses the flip
-            flip = jitter = None
-            if opts.mode == "train" and generator is not None:
-                flip = draw_flip(table, state.aux.model_id, generator)
-                if params.sky is not None:
-                    jitter = draw_sky_jitter(frame.cam.H, frame.cam.W, generator, dev)
-            draws = Draws(flip, jitter)
+            draws = take_draws(table, state, frame.cam, generator, opts)
         out = render_frame(
             params, state.aux, table, pose_data, frame, state.step, opts=opts,
             flip=draws.flip, sky_jitter=draws.sky_jitter,
@@ -341,44 +435,7 @@ def make_train_step(
         grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, wrt)]
         return scalars, out, dict(zip(leaves, grads[:-2])), grads[-2], grads[-1]
 
-    def step_fn(state: TrainState, frame: FrameInput, gt: GroundTruth,
-                generator: Optional[torch.Generator] = None, *, draws: Optional[Draws] = None):
-        step = state.step
-        scalars, out, g_params, g_m2d, g_abs = loss_and_grads(state, frame, gt, generator, draws)
-        with torch.no_grad(), record_function("optimizer"):
-            scalars["psnr"] = L.psnr(out["rgb"], gt.image, gt.mask)
-
-            # densification statistics, only while densifying
-            collect = 1.0 if step < o.densify_until_iter else 0.0
-            aux = accumulate_stats(
-                state.aux, out["radii"] * collect, g_m2d * collect, g_abs * collect,
-                frame.cam.W, frame.cam.H,
-            )
-            # per-row activity: rows of models not visible at this frame
-            # get no gradient and no Adam step (torch's set_to_none)
-            mid = aux.model_id
-            fr = frame.cam.frame
-            row_mask = aux.alive & (fr >= table.start_frame[mid]) & (fr <= table.end_frame[mid])
-            values = flatten_params(state.params)
-            mask = {k: row_mask for k in values if k.startswith(GAUSS)}
-            lr = make_lr_tree(cfg, table, state.params, aux, step)
-            for k in ("pose_correction.trans", "pose_correction.rots"):
-                if k in g_params:  # weight decay 0.01
-                    g_params[k] = g_params[k] + 0.01 * values[k]
-            new_values, new_adam = adam_update(values, g_params, state.adam, lr, mask)
-
-            scalars["overflow"] = out["overflow"]
-            scalars["overflow_instance"] = out["overflow_instance"]
-            scalars["overflow_tile"] = out["overflow_tile"]
-            scalars["num_alive"] = aux.alive.sum()
-            scalars = {k: v.detach() for k, v in scalars.items()}
-        new_state = TrainState(
-            params=unflatten_params(new_values, state.params), adam=new_adam, aux=aux, step=step + 1
-        )
-        return new_state, scalars
-
-    step_fn.loss_and_grads = loss_and_grads
-    return step_fn
+    return step_around(loss_and_grads, cfg, table, opts, data_group)
 
 
 def _gaussian_adam(adam: AdamState) -> AdamState:

@@ -109,7 +109,11 @@ def make_camera(
 
 
 def camera_rays(
-    cam: Camera, downsample: int = 1, jitter: Optional[torch.Tensor] = None
+    cam: Camera,
+    downsample: int = 1,
+    jitter: Optional[torch.Tensor] = None,
+    row_start: int = 0,
+    num_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """Per-pixel unit ray directions in world frame, [H, W, 3].
 
@@ -118,22 +122,24 @@ def camera_rays(
     coord (j + 0.5) * ds), the eval-path half-res sky grid.
     jitter: optional [H, W, 2] sub-pixel offsets in [-0.5, 0.5) added to
     the pixel centers (the train-time sky anti-aliasing); full grid only.
-    The row band of tile-sharded rendering comes with a later slice."""
-    H, W = cam.H, cam.W
+    row_start / num_rows: the image rows [row_start, row_start +
+    num_rows) of a tile-row band (parallel/tiles.py) in place of all
+    cam.H rows; H above is then num_rows."""
+    H, W = (cam.H if num_rows is None else num_rows), cam.W
     dev = cam.K.device
     if downsample > 1:
         ds = float(downsample)
         Hs = -(-H // downsample)
         Ws = -(-W // downsample)
         xs = (torch.arange(Ws, dtype=torch.float32, device=dev) + 0.5) * ds - 0.5
-        ys = (torch.arange(Hs, dtype=torch.float32, device=dev) + 0.5) * ds - 0.5
+        ys = (torch.arange(Hs, dtype=torch.float32, device=dev) + 0.5) * ds - 0.5 + row_start
         x = xs[None, :].expand(Hs, Ws)
         y = ys[:, None].expand(Hs, Ws)
         if jitter is not None:
             raise ValueError("jitter is a train-time feature; downsample is eval-only")
     else:
         x = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
-        y = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+        y = (torch.arange(H, dtype=torch.float32, device=dev) + row_start)[:, None].expand(H, W)
         if jitter is not None:
             x = x + jitter[..., 0]
             y = y + jitter[..., 1]

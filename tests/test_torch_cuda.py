@@ -428,3 +428,54 @@ def test_library_name_tracks_headers_and_variants():
     probe = ("-DSG_BLOCK_TIMES",)
     assert _build.nvcc_flags("tile_blend", probe)[-1] == "-DSG_BLOCK_TIMES"
     assert _build.library_path("tile_blend", probe) != _build.library_path("tile_blend")
+
+
+# ---------------------------------------------------------------- tile bands and camera ranks
+
+
+SMALL_SCENE = dict(sky_resolution=16, num_bkgd=600, num_actors=2, H=64, W=96)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,D", [(64, 2), (64, 4), (32, 4)])
+def test_bands_match_the_whole_frame(cuda_device, H, D):
+    """A frame in D tile-row bands in turn against the whole frame at
+    the blend tolerances (sky_downsample 1); at 32 rows in 4 bands the
+    bands 2 and 3 are empty and still launch the blend (4 launches)."""
+    import dataclasses
+
+    from chip_smoke import compare_frames
+    from street_gaussians_torch import serve
+    from street_gaussians_torch.models.renderer import render_frame
+    from street_gaussians_torch.parallel import tiles
+
+    scene, params = serve.bench_scene(seed=3, device=cuda_device, **{**SMALL_SCENE, "H": H})
+    opts = dataclasses.replace(serve.SERVE_OPTS, sky_downsample=1)
+    frame = scene.frames[1]
+    with torch.no_grad():
+        whole = render_frame(params, scene.aux, scene.table, scene.pose_data, frame, serve.SERVE_STEP, opts=opts)
+        before = tile_raster2.tile_blend_instances.launches
+        got = tiles.make_row_sharded_render(scene.table, scene.pose_data, opts, D)(params, scene.aux, frame)
+    torch.cuda.synchronize()
+    assert tile_raster2.tile_blend_instances.launches == before + D
+    compare_frames(got, whole, f"{H} rows in {D} bands")
+    assert torch.equal(got["radii"], whole["radii"])
+    assert int(got["num_instances"]) == int(whole["num_instances"]) and int(got["overflow"]) == 0
+
+
+@pytest.mark.cuda
+def test_two_camera_ranks_share_one_card(cuda_device, tmp_path):
+    """Two spawned ranks on cuda:0 (Gloo), one view each of a small
+    bench cell: one camera-parallel step in one band and in two leaves
+    the two ranks' states bit-equal, every kernel launched once a band."""
+    from chip_smoke import camera_rank
+
+    torch.multiprocessing.spawn(camera_rank, args=(2, str(tmp_path), SMALL_SCENE), nprocs=2, join=True)
+    ranks = [torch.load(str(tmp_path / f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    assert ranks[0]["initial_hash"] == ranks[1]["initial_hash"]
+    for D in (1, 2):
+        a, b = (r["steps"][D] for r in ranks)
+        assert a["hash"] == b["hash"] and a["overflow"] == b["overflow"] == 0
+        for r in (a, b):
+            n = r["launches"]
+            assert (n["tile_blend_instances"], n["tile_blend_bwd"], n["segment_rowsum"]) == (D, D, 2 * D), n

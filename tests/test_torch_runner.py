@@ -415,7 +415,7 @@ def test_non_finite_loss_fails_loudly(small_seq, tmp_path):
 
 
 def test_unported_branches_raise(small_seq, tmp_path):
-    for opts, item in ((["train.batch_size", "2"], 6), (["train.gauss_shards", "2"], 6),
+    for opts, item in ((["train.multihost", "true"], "6b"), (["train.gauss_shards", "2"], "6b"),
                        (["viewer.enabled", "true"], 7)):
         cfg = small_cfg(small_seq, str(tmp_path / "out"), 1, *opts)
         with pytest.raises(NotImplementedError, match=f"item {item}"):
