@@ -112,12 +112,32 @@
    --nproc_per_node 2 ... train.batch_size 2` (rank 0 alone writes) and
    `render` with and without render.parallel tile=2 (PNGs within 1) on
    step 8's sequence;
-12. prints one `kernels` JSON line with all eight kernels (with the
+12. Gaussian sharding and the multi-host pieces (`[gauss]` lines): 12a
+   serves the bench frame through gauss=2 and gauss=4 (the table's rows
+   composed in blocks in turn and joined) and gausstile=2x2 (2 blocks,
+   the joined screen in 2 bands) against the whole frame: radii and the
+   integer outputs equal, the images bit-equal (gausstile: the blend
+   tolerances, the band-edge rows left out as in 11a); kernels 2.1 and
+   2.3 on the gauss=4 render's own inputs; ms/view and peak memory in
+   turns; 12b spawns two gauss ranks on the one card (Gloo), each holding
+   half the bench cell's rows: the loss against the in-process single
+   step's within 1e-6 relative on the same draws, every gradient leaf
+   within grads_close, the radii equal, the ranks' whole states and
+   replicated leaves bit-equal, each rank's row state half the whole's
+   by torch.cuda.memory_allocated, the bytes each collective took,
+   ms/step; the same for gauss x tile (2 bands in turn a rank); 12c runs
+   `torchrun --nproc_per_node 2 ... train.gauss_shards 2` on step 8's
+   sequence past a densify and a checkpoint, a resume, `render` with
+   and without render.parallel gauss=2 (PNGs within 1), and two torchrun
+   launches as two hosts (--nnodes 2, --master_addr 127.0.0.1) at
+   train.multihost true train.batch_size 2 (each host's own views, equal
+   param_checksum, one log, one checkpoint);
+13. prints one `kernels` JSON line with all eight kernels (with the
    loaded sequence's launches before and after the gate, step 9's in
    training and in render_sets, step 10's F = 27 times, bounds,
-   launches and the F = 4 times in turns with them, and step 11's
-   launches on the band paths);
-13. prints {"ok": true, "device": {...}} as the last line.
+   launches and the F = 4 times in turns with them, and steps 11's and
+   12's launches on the band and gauss paths);
+14. prints {"ok": true, "device": {...}} as the last line.
 
 Any failure raises (exit code != 0). Without CUDA, or without the rest
 of the repository beside it, it fails before printing a result.
@@ -130,6 +150,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -652,6 +673,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         # ---- 11. tile-row bands and camera data parallel ----
         par = parallel_phase(dev, scene, params, os.path.join(tmp, "seq"), tmp, smi)
+        torch.cuda.empty_cache()
+        # ---- 12. Gaussian-sharded rendering and training, multi-host ----
+        gs = gauss_phase(dev, scene, params, os.path.join(tmp, "seq"), tmp, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -688,6 +712,12 @@ def main() -> int:
         band_launches.update({f"serve_{k}": v[name] for k, v in par["launches"]["serve"].items() if name in v})
         if band_launches:
             extra = {**extra, "band_launches": band_launches}
+        if name in gs["errors"]:
+            err = max(err, gs["errors"][name])
+        gauss_launches = {f"serve_{k}": v[name] for k, v in gs["launches"]["serve"].items() if name in v}
+        gauss_launches.update({k: v[name] for k, v in gs["launches"].items() if k != "serve" and name in v})
+        if gauss_launches:
+            extra = {**extra, "gauss_launches": gauss_launches}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": n, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
                         "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": lib, **extra})
@@ -701,6 +731,7 @@ def main() -> int:
     log(f"[runner] summary: {json.dumps({k: v for k, v in run.items() if k not in ('launches', 'errors')})}")
     log(f"[wide] summary: {json.dumps(wide['numbers'])}")
     log(f"[parallel] summary: {json.dumps(par['numbers'])}")
+    log(f"[gauss] summary: {json.dumps(gs['numbers'])}")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2935,6 +2966,455 @@ def parallel_phase(dev, scene, params, root: str, tmp: str, smi: str) -> dict:
     return {"errors": {**a["errors"], **b["errors"]},
             "launches": {"serve": a["launches"], **b["launches"], **c["launches"],
                          "runner_tile_shards": d["tile_shards_launches"]},
+            "numbers": numbers}
+
+
+# ---- step 12: Gaussian-sharded rendering and training, multi-host ----
+GAUSS_SERVE = (("gauss=2", 2, 1), ("gauss=4", 4, 1), ("gausstile=2x2", 2, 2))  # (name, row blocks, bands)
+GAUSS_ITERS = 12  # the gauss runner: densify at 10 (from 5, every 10), a checkpoint at 12
+GAUSS_RESUME_ITERS = 14
+IMAGE_KEYS = ("rgb", "depth", "acc", "T")
+COUNTS = ("num_instances", "overflow", "overflow_instance", "overflow_tile")
+
+
+def serve_gauss(dev, scene, params) -> dict:
+    """12a: the bench frame through gauss=2, gauss=4 (the table's rows
+    composed in 2 and 4 blocks in turn, joined) and gausstile=2x2 (2
+    blocks, the joined screen in 2 tile-row bands, each at a capacity
+    from its demand as 11a) in one process, against the whole frame:
+    radii and the integer outputs equal, the images bit-equal (gauss=N)
+    or to the blend tolerances (gausstile; at sky_downsample 2 but on the
+    band-edge rows, as 11a); kernels 2.1 and 2.3 against their plain
+    versions on the gauss=4 render's own inputs; ms/view and peak memory
+    in turns with the whole frame."""
+    import dataclasses
+
+    from street_gaussians_torch import serve
+    from street_gaussians_torch.models.renderer import render_frame, screen_space
+    from street_gaussians_torch.models.sky_cubemap import build_sky_table
+    from street_gaussians_torch.ops import fill, tile_raster2
+    from street_gaussians_torch.ops.preprocess import clip_screen_to_rows
+    from street_gaussians_torch.parallel import gauss, tiles
+
+    frame = scene.frames[0]
+    H = frame.cam.H
+    opts = serve.SERVE_OPTS
+    with torch.no_grad():
+        sky_table = build_sky_table(params.sky.cubemap)
+        screen, _ = screen_space(params, scene.aux, scene.table, scene.pose_data, frame, serve.SERVE_STEP, opts)
+        lay = tiles.band_layout(H, 2)
+        need = max(int(clip_screen_to_rows(screen, *lay.band(d)).tiles_touched.sum()) for d in range(2))
+        del screen
+    fns = {"whole": lambda f: render_frame(params, scene.aux, scene.table, scene.pose_data, f, serve.SERVE_STEP,
+                                           opts=opts, sky_table=sky_table)}
+    for name, G, T in GAUSS_SERVE:
+        o = opts if T == 1 else dataclasses.replace(opts, instance_capacity=T * _round_up(need, 128))
+        r = gauss.make_gauss_sharded_render(scene.table, scene.pose_data, o, G, tile_shards=T)
+        fns[name] = (lambda r: lambda f: r(params, scene.aux, f, sky_table=sky_table))(r)
+    launches, err = {}, {"expand_runs": 0.0, "tile_blend_instances": 0.0}
+    with torch.no_grad():
+        whole = fns["whole"](frame)
+        for name, G, T in GAUSS_SERVE:
+            torch.cuda.synchronize()
+            _zero_counts()
+            got = fns[name](frame)
+            torch.cuda.synchronize()
+            n = launches[name] = _launch_counts()
+            if n["tile_blend_instances"] != T or n["expand_runs"] < T:
+                raise AssertionError(f"{name}: a view launched {n}")
+            counts = {k: (int(got[k]), int(whole[k])) for k in COUNTS}
+            if any(a != b for a, b in counts.values()) or not torch.equal(got["radii"], whole["radii"]):
+                raise AssertionError(f"{name}: radii or counts {counts} differ from the whole frame's")
+            if int(whole["overflow"]) != 0:
+                raise AssertionError(f"the whole bench frame drops {int(whole['overflow'])} instances")
+            what = f"bench frame through {name} against the whole frame"
+            if T == 1:
+                same = [k for k in IMAGE_KEYS if torch.equal(got[k], whole[k])]
+                e = compare_frames(got, whole, what)
+                log(f"[gauss] {what}: radii and {list(COUNTS)} equal; {same} bit-equal; max abs err {e:.3e}")
+            else:
+                edges = band_edge_rows(H, T)
+                keep = torch.ones(H, dtype=torch.bool, device=dev)
+                keep[edges] = False
+                e = compare_frames(got, whole, f"{what}, rows {edges} left out", keep)
+                log(f"[gauss] {what}: radii and counts equal; max abs err {e:.3e} but on the band-edge rows {edges} "
+                    "(the reference's own upsample, 11a)")
+        # kernels 2.1 and 2.3 on the gauss=4 render's own inputs
+        recs = {"expand_runs": CallRecorder(fill.expand_runs, [fill]),
+                "forward": CallRecorder(tile_raster2._forward, [tile_raster2])}
+        try:
+            fns["gauss=4"](frame)
+        finally:
+            for r in recs.values():
+                r.restore()
+        for a_args, _ in recs["expand_runs"].calls:
+            if not torch.equal(fill.expand_runs(*a_args), fill.expand_runs_plain(*a_args)):
+                raise AssertionError("expand_runs kernel != plain on the gauss=4 render's inputs")
+        for b_args, _ in recs["forward"].calls:
+            err["tile_blend_instances"] = max(err["tile_blend_instances"], compare_blend(
+                tile_raster2.tile_blend_instances(*b_args), tile_raster2.tile_blend_plain(*b_args), b_args[3],
+                f"tile_blend on the gauss=4 render's inputs ({b_args[5]} tiles, {int(b_args[2].sum())} instances)"))
+        log("[check] expand_runs on the gauss=4 render's own inputs: exact")
+        del recs, whole, got
+
+        ms = {k: [] for k in fns}
+        peak = {k: 0.0 for k in fns}
+        for fn in fns.values():
+            fn(frame)
+        for _ in range(PAR_TURNS):
+            for k, fn in fns.items():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                fn(frame)
+                e1.record()
+                torch.cuda.synchronize()
+                ms[k].append(e0.elapsed_time(e1))
+                peak[k] = max(peak[k], torch.cuda.max_memory_allocated(dev) / 2**30)
+    out = {"view_ms": {k: sum(v) / len(v) for k, v in ms.items()}, "view_ms_turns": ms, "peak_gib": peak,
+           "gausstile_band_capacity": _round_up(need, 128)}
+    log(f"[gauss] serving the bench frame, {PAR_TURNS} turns: ms/view "
+        + ", ".join(f"{k} {v:.3f}" for k, v in out["view_ms"].items()) + "; peak GiB "
+        + ", ".join(f"{k} {v:.3f}" for k, v in peak.items()))
+    return {"errors": err, "launches": launches, "numbers": out}
+
+
+def _tensors_hash(tensors: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in sorted(tensors.items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def gauss_rank(rank: int, world: int, workdir: str) -> None:
+    """Step 12b's rank (torch.multiprocessing.spawn): a Gloo group of
+    `world` ranks on cuda:0; step 11's bench train cell, rank 0's state
+    on every rank, this rank's block of its rows (the bytes the copy
+    takes by torch.cuda.memory_allocated); the gauss step's gradients on
+    the whole table's draws, the whole frame and in 2 bands in turn
+    (gauss x tile), their launches and the bytes each collective took;
+    one step's state gathered; timed steps. Saves its results and (rank
+    0) the gradients, gathered to the whole table's rows."""
+    import dataclasses
+
+    from street_gaussians_torch.parallel import comm, dp, gauss
+    from street_gaussians_torch.train_lib import GAUSS, flatten_params, take_draws
+
+    group = comm.init_group(rank, world, "file://" + os.path.join(workdir, "rendezvous"), device="cuda:0")
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = group.device
+        cell = parallel_cell(dev)
+        whole = dp.broadcast_state(cell.state, group)
+        table, pose = cell.scene.table, cell.scene.pose_data
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated(dev)
+        state = gauss.shard_train_state(whole, rank, world)
+        torch.cuda.synchronize()
+        res = {"initial_hash": _state_hash(whole), "local_bytes_allocated": torch.cuda.memory_allocated(dev) - m0,
+               "local_bytes": gauss.row_state_bytes(state), "whole_bytes": gauss.row_state_bytes(whole),
+               "steps": {}}
+        del whole
+        cell.state = None
+        torch.cuda.empty_cache()
+        draws = take_draws(table, state, cell.frame.cam, torch.Generator(device=dev).manual_seed(0), cell.opts,
+                           model_id=gauss.model_ids(table))
+        for T in (1, 2):
+            # each band at the frame's capacity (11a)
+            opts = dataclasses.replace(cell.opts, instance_capacity=T * cell.opts.instance_capacity)
+            step = gauss.make_gauss_sharded_train_step(cell.cfg, table, pose, opts, world, group=group, tile_shards=T)
+            torch.cuda.synchronize()
+            _zero_counts()
+            group.traffic.clear()
+            sc, out, g, g_m2d, g_abs = step.loss_and_grads(state, cell.frame, cell.gt, draws=draws)
+            torch.cuda.synchronize()
+            entry = {"launches": _launch_counts(), "traffic": dict(group.traffic), "loss": float(sc["loss"].detach()),
+                     "overflow": int(out["overflow"]), "num_instances": int(out["num_instances"])}
+            names = [k for k in g if k.startswith(GAUSS)]
+            with torch.no_grad():
+                rows = group.gather_rows_many([x.detach() for x in [*(g[k] for k in names), g_m2d, g_abs,
+                                                                    out["radii"]]])
+            grads = {**g, **dict(zip(names, rows))}
+            entry["replicated_grad_hash"] = _tensors_hash({k: v for k, v in g.items() if k not in names})
+            if rank == 0:
+                entry["grads"] = _numpy(grads)
+                entry["m2d"], entry["abs"], entry["radii"] = (x.cpu().numpy() for x in rows[-3:])
+            del g, grads, rows
+            s1, _ = step(state, cell.frame, cell.gt, draws=draws)
+            entry["step_hash"] = _state_hash(gauss.gather_train_state(s1, step.shards))
+            entry["replicated_hash"] = _tensors_hash({k: v for k, v in flatten_params(s1.params).items()
+                                                      if not k.startswith(GAUSS)})
+            gen = torch.Generator(device=dev).manual_seed(1)
+            ms, s = [], s1
+            for _ in range(PAR_TURNS):
+                torch.distributed.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s, _ = step(s, cell.frame, cell.gt, gen)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            entry["ms"] = ms
+            del s, s1
+            res["steps"][T] = entry
+        res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        torch.save(res, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        comm.close_group()
+
+
+def gauss_ranks(dev, tmp) -> dict:
+    """12b: two gauss ranks on cuda:0 over Gloo, the bench train step on
+    the whole table's draws: the loss against the in-process single
+    step's within 1e-6 relative, every gradient leaf (the whole table's
+    rows gathered) within grads_close, the radii equal; the gauss x tile
+    step (2 bands in turn a rank) within rtol 1e-5 and grads_close; the
+    ranks' replicated leaves and their steps' whole states bit-equal;
+    each rank's row state about half the whole's; the bytes the
+    collectives took; ms/step of the two ranks sharing one card and of
+    the single step, in turn."""
+    import dataclasses
+
+    from street_gaussians_torch.train_lib import take_draws
+
+    workdir = os.path.join(tmp, "gauss_ranks")
+    os.makedirs(workdir)
+    torch.multiprocessing.spawn(gauss_rank, args=(2, workdir), nprocs=2, join=True)
+    ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    cell = parallel_cell(dev)
+    if _state_hash(cell.state) != ranks[0]["initial_hash"] or ranks[1]["initial_hash"] != ranks[0]["initial_hash"]:
+        raise AssertionError("the gauss ranks' initial states differ from the reference's")
+    draws = take_draws(cell.scene.table, cell.state, cell.frame.cam, torch.Generator(device=dev).manual_seed(0),
+                       cell.opts)
+    sc, out, g, g_m2d, g_abs = cell.step_fn.loss_and_grads(cell.state, cell.frame, cell.gt, draws=draws)
+    loss = float(sc["loss"].detach())
+    alive = cell.state.aux.alive.cpu().numpy()
+    ref = {k: v.cpu().numpy() for k, v in g.items()}
+    radii = out["radii"].detach().cpu().numpy()
+    m2d, absg = g_m2d.cpu().numpy(), g_abs.cpu().numpy()
+    del sc, out, g, g_m2d, g_abs
+    res = {}
+    for T in (1, 2):
+        a, b = (r["steps"][T] for r in ranks)
+        what = f"gauss step over 2 ranks{' x 2 bands in turn' if T == 2 else ''}"
+        for key in ("step_hash", "replicated_hash", "replicated_grad_hash", "loss"):
+            if a[key] != b[key]:
+                raise AssertionError(f"{what}: the ranks' {key} differ")
+        for r, x in enumerate((a, b)):
+            n = x["launches"]
+            if n["tile_blend_instances"] != T or n["tile_blend_bwd"] != T or n["segment_rowsum"] != 2 * T:
+                raise AssertionError(f"{what}, rank {r}: launches {n}")
+            if x["overflow"] != 0:
+                raise AssertionError(f"{what}, rank {r}: overflow {x['overflow']}")
+        rel = abs(a["loss"] - loss) / abs(loss)
+        if rel > (1e-6 if T == 1 else 1e-5):
+            raise AssertionError(f"{what}: loss {a['loss']} vs the single step's {loss} (rel {rel:.2e})")
+        if not np.array_equal(a["radii"], radii):
+            raise AssertionError(f"{what}: radii differ from the single step's")
+        for k, w in ref.items():
+            got = a["grads"][k]
+            if k.startswith("gaussians."):
+                m = alive.reshape((-1,) + (1,) * (w.ndim - 1))
+                w, got = w * m, got * m
+            if np.abs(w).max() > 0:
+                grads_close(by_row(k, got), by_row(k, w), f"{what}: grad {k}")
+        grads_close(a["m2d"], m2d, f"{what}: grad mean2d")
+        grads_close(a["abs"], absg, f"{what}: grad AbsGS")
+        res[T] = {"loss": a["loss"], "loss_rel": rel, "ms": [x["ms"] for x in (a, b)],
+                  "step_ms_mean": sum(sum(x["ms"]) for x in (a, b)) / (2 * PAR_TURNS),
+                  "traffic_bytes": a["traffic"], "launches": [x["launches"] for x in (a, b)]}
+        log(f"[gauss] {what} on one card (Gloo), the bench step on the single step's draws: loss {a['loss']:.8f} vs "
+            f"{loss:.8f} (rel {rel:.2e}); gradients within grads_close, radii equal; the ranks' whole states and "
+            f"replicated leaves bit-equal; bytes into each collective a step {a['traffic']}; launches "
+            f"{a['launches']}; ms/step {res[T]['step_ms_mean']:.1f}")
+    del ref
+    # the single step in this process, for the time beside the ranks'
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cell.step_fn(cell.state, cell.frame, cell.gt, gen)
+    single_ms = []
+    for _ in range(PAR_TURNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cell.step_fn(cell.state, cell.frame, cell.gt, gen)
+        torch.cuda.synchronize()
+        single_ms.append(1e3 * (time.perf_counter() - t0))
+    r0 = ranks[0]
+    res.update(single_ms=single_ms, local_bytes=[r["local_bytes"] for r in ranks],
+               local_bytes_allocated=[r["local_bytes_allocated"] for r in ranks], whole_bytes=r0["whole_bytes"],
+               peak_gib=[r["peak_gib"] for r in ranks])
+    share = [r["local_bytes_allocated"] / r0["whole_bytes"] for r in ranks]
+    if any(abs(x - 0.5) > 0.01 for x in share):
+        raise AssertionError(f"the ranks' row state is {share} of the whole's")
+    log(f"[gauss] row state (parameters, Adam, aux) a rank by torch.cuda.memory_allocated: "
+        f"{res['local_bytes_allocated']} bytes, {share} of the whole's {r0['whole_bytes']}; the single step "
+        f"{sum(single_ms) / len(single_ms):.1f} ms/step in this process; peak GiB a rank {res['peak_gib']}")
+    res["launches"] = {f"rank{r}_T{T}": ranks[r]["steps"][T]["launches"] for r in range(2) for T in (1, 2)}
+    del cell
+    return res
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _finals(text: str) -> list:
+    """The `[train] final {...}` records of a run's output, each decoded
+    where it starts: the ranks of one torchrun share its output, so a
+    record need not be the only thing on its line."""
+    dec = json.JSONDecoder()
+    return [dec.raw_decode(text, m.end())[0] for m in re.finditer(r"\[train\] final ", text)]
+
+
+def runner_gauss(dev, root: str, tmp: str) -> dict:
+    """12c: step 8's sequence (PAR_FRAMES frames of 3 cameras) through the
+    CLIs: `torchrun --nproc_per_node 2 ... train.gauss_shards 2` for
+    GAUSS_ITERS iterations past a densify (at 10) and a checkpoint (at
+    12), then a resume to GAUSS_RESUME_ITERS; `render` from the first
+    run's checkpoint with and without render.parallel gauss=2 (in-process:
+    the kernels' launches counted; the PNGs within 1, u8); two torchrun
+    launches as two hosts of one rank (--nnodes 2 --node_rank 0|1,
+    --master_addr 127.0.0.1) at train.multihost true train.batch_size 2:
+    each host's own views, equal param_checksum, one log and one
+    checkpoint."""
+    import glob
+
+    from street_gaussians_torch import render as render_cli
+    from street_gaussians_torch.utils.image_io import imread
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    recipe = os.path.join(here, "configs", "example", "waymo_train_002.yaml")
+
+    def opts(out, iters):
+        return ["source_path", root, "model_path", out, "data.selected_frames", f"[0, {PAR_FRAMES - 1}]",
+                "data.use_tracker", "false", "train.iterations", str(iters), "train.test_iterations", "[]",
+                "train.save_iterations", f"[{GAUSS_ITERS}]", "train.checkpoint_iterations", f"[{GAUSS_ITERS}]",
+                "optim.densify_from_iter", "5", "optim.densification_interval", "10",
+                "render.instance_capacity", str(PAR_CAPACITY), "render.save_video", "false"]
+
+    def torchrun(args, what):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", *args], capture_output=True,
+                              text=True, timeout=600, cwd=here)
+        text = proc.stdout + proc.stderr
+        for ln in text.splitlines():
+            if ln.startswith(("[comm]", "[gauss]", "[resume]", "[train] final")):
+                log(f"[gauss] {what}: {ln}")
+        if proc.returncode != 0:
+            raise AssertionError(f"{what} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        return text, time.perf_counter() - t0
+
+    res = {}
+    out_g = os.path.join(tmp, "gauss_run")
+    launch = ["--standalone", "--nproc_per_node", "2", "-m", "street_gaussians_torch.train", "--config", recipe]
+    text, res["torchrun_s"] = torchrun([*launch, *opts(out_g, GAUSS_ITERS), "train.gauss_shards", "2"],
+                                       "torchrun train.gauss_shards 2")
+    finals = _finals(text)
+    with open(os.path.join(out_g, "record", "train_log.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    dens = [r for r in recs if any(k.startswith("densify/") for k in r)]
+    if (len(finals) != 2 or finals[0]["param_checksum"] != finals[1]["param_checksum"]
+            or [r["iteration"] for r in dens] != [10] or len(recs) != 2 or recs[1]["overflow"] != 0
+            or not os.path.isdir(os.path.join(out_g, "trained_model", f"iteration_{GAUSS_ITERS}"))):
+        raise AssertionError(f"torchrun train.gauss_shards 2: finals {finals}, log {recs}")
+    res["checksum"] = finals[0]["param_checksum"]
+    res["densify"] = dens[0]
+    text, res["resume_s"] = torchrun([*launch, *opts(out_g, GAUSS_RESUME_ITERS), "train.gauss_shards", "2"],
+                                     "torchrun train.gauss_shards 2, resumed")
+    finals = _finals(text)
+    if len(finals) != 2 or {f["start_iteration"] for f in finals} != {GAUSS_ITERS} or \
+            finals[0]["param_checksum"] != finals[1]["param_checksum"]:
+        raise AssertionError(f"the gauss resume: finals {finals}")
+    res["resume_checksum"] = finals[0]["param_checksum"]
+    log(f"[gauss] torchrun --nproc_per_node 2 train.gauss_shards 2: {GAUSS_ITERS} iterations in "
+        f"{res['torchrun_s']:.1f} s wall (two processes on one card), densify at 10 {dens[0]}, a checkpoint at "
+        f"{GAUSS_ITERS}, the ranks' param_checksum equal ({res['checksum']}); resumed to {GAUSS_RESUME_ITERS} in "
+        f"{res['resume_s']:.1f} s")
+
+    pngs = {}
+    for par in ("", "gauss=2"):
+        _zero_counts()
+        render_cli.main(["--config", recipe, *opts(out_g, GAUSS_ITERS), *(["render.parallel", par] if par else [])])
+        n = _launch_counts()
+        d = os.path.join(out_g, "train_renders")
+        pngs[par] = {os.path.basename(p): imread(p).astype(int) for p in sorted(glob.glob(os.path.join(d, "*.png")))}
+        shutil.move(d, d + (par.replace("=", "") or "_whole"))
+        res[f"render_launches_{par or 'whole'}"] = n
+        if n["tile_blend_instances"] < len(pngs[par]):
+            raise AssertionError(f"render {par}: launches {n} for {len(pngs[par])} views")
+    if list(pngs[""]) != list(pngs["gauss=2"]) or len(pngs[""]) != 3 * PAR_FRAMES:
+        raise AssertionError(f"render: {len(pngs[''])} and {len(pngs['gauss=2'])} PNGs")
+    worst = max(int(np.abs(pngs[""][k] - pngs["gauss=2"][k]).max()) for k in pngs[""])
+    if worst > 1:
+        raise AssertionError(f"render.parallel gauss=2: PNGs differ by {worst} from those rendered without it")
+    log(f"[gauss] render from the sharded run's checkpoint with and without render.parallel gauss=2: "
+        f"{len(pngs[''])} PNGs each, within {worst} (u8)")
+
+    out_h = os.path.join(tmp, "hosts_run")
+    port = _free_port()
+    procs, t0 = [], time.perf_counter()
+    for node in (0, 1):
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "2", "--node_rank", str(node),
+               "--nproc_per_node", "1", "--master_addr", "127.0.0.1", "--master_port", str(port),
+               "-m", "street_gaussians_torch.train", "--config", recipe, *opts(out_h, GAUSS_ITERS),
+               "train.multihost", "true", "train.batch_size", "2"]
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=here))
+    outs = []
+    try:
+        for p in procs:
+            so, se = p.communicate(timeout=600)
+            outs.append((p.returncode, so + se))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res["hosts_s"] = time.perf_counter() - t0
+    finals = []
+    for node, (rc, text) in enumerate(outs):
+        for ln in text.splitlines():
+            if ln.startswith(("[comm]", "[dp]", "[multihost]")):
+                log(f"[gauss] two hosts, host {node}: {ln}")
+        if rc != 0:
+            raise AssertionError(f"two hosts, host {node} failed ({rc}):\n{text[-4000:]}")
+        finals += _finals(text)
+    with open(os.path.join(out_h, "record", "train_log.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    views = [set(f["host_views"]["first_epoch"]) for f in finals]
+    if (len(finals) != 2 or finals[0]["param_checksum"] != finals[1]["param_checksum"] or views[0] & views[1]
+            or len([r for r in recs if "loss" in r]) != 1
+            or not os.path.isdir(os.path.join(out_h, "trained_model", f"iteration_{GAUSS_ITERS}"))):
+        raise AssertionError(f"two hosts: finals {finals}, log {recs}")
+    res["hosts_checksums"] = [f["param_checksum"] for f in finals]
+    res["hosts_views"] = [f["host_views"] for f in finals]
+    log(f"[gauss] two hosts (torchrun --nnodes 2, one rank each, one card) at train.multihost true "
+        f"train.batch_size 2: {GAUSS_ITERS} iterations in {res['hosts_s']:.1f} s wall; host views "
+        f"{[sorted(v) for v in views]}; param_checksum {res['hosts_checksums']} (equal); one log, one checkpoint")
+    return res
+
+
+def gauss_phase(dev, scene, params, root: str, tmp: str, smi: str) -> dict:
+    """Step 12 (see serve_gauss, gauss_ranks and runner_gauss). Returns
+    the kernels' errors and launches on the gauss paths and the numbers
+    printed."""
+    t0 = time.perf_counter()
+    a = serve_gauss(dev, scene, params)
+    torch.cuda.empty_cache()
+    b = gauss_ranks(dev, tmp)
+    torch.cuda.empty_cache()
+    c = runner_gauss(dev, root, tmp)
+    numbers = {"card": smi, "serve": a["numbers"], "train": {k: v for k, v in b.items() if k != "launches"},
+               "runner": c, "seconds": time.perf_counter() - t0}
+    log(f"[gauss] step 12 in {numbers['seconds']:.1f} s ({smi})")
+    return {"errors": a["errors"],
+            "launches": {"serve": a["launches"], **b["launches"],
+                         **{k: v for k, v in c.items() if k.startswith("render_launches")}},
             "numbers": numbers}
 
 

@@ -114,34 +114,47 @@ class RenderOptions:
 
 class RowsFromModels(torch.autograd.Function):
     """per_model[mid] whose gradient needs no scatter: model m owns the
-    contiguous rows slices[m], so its gradient is a slice sum. Rows that
-    the slices do not cover fall back to a one-hot product."""
+    contiguous rows slices[m] of the table, so its gradient is a slice
+    sum: over the whole table when mid has its rows, or over the slices
+    clipped to the rows [row_offset, row_offset + n) when the caller says
+    mid holds that block of them (parallel/gauss.py). Other rows fall
+    back to a one-hot product."""
 
     @staticmethod
-    def forward(ctx, per_model, mid, slices):
+    def forward(ctx, per_model, mid, slices, row_offset):
         ctx.save_for_backward(mid)
-        ctx.slices = slices
+        n = mid.shape[0]
+        ctx.local = None
+        if row_offset is None:
+            if slices[0][0] == 0 and n == slices[-1][1]:
+                ctx.local = list(slices)
+        elif slices[0][0] == 0 and all(a[1] == b[0] for a, b in zip(slices, slices[1:])) \
+                and row_offset + n <= slices[-1][1]:
+            ctx.local = [(min(max(s - row_offset, 0), n), min(max(e - row_offset, 0), n)) for s, e in slices]
         ctx.num_models = per_model.shape[0]
         return per_model[mid]
 
     @staticmethod
     def backward(ctx, d_rows):
         (mid,) = ctx.saved_tensors
-        slices = ctx.slices
-        if d_rows.shape[0] == slices[-1][1] and slices[0][0] == 0:
-            d_pm = torch.stack([d_rows[s:e].sum(dim=0) for s, e in slices])
+        if ctx.local is not None:
+            d_pm = torch.stack([d_rows[s:e].sum(dim=0) for s, e in ctx.local])
         else:
             models = torch.arange(ctx.num_models, device=mid.device)
             d_pm = (mid[:, None] == models[None, :]).to(d_rows.dtype).t() @ d_rows
-        return d_pm, None, None
+        return d_pm, None, None, None
 
 
 def rows_from_models(
-    per_model: torch.Tensor, mid: torch.Tensor, slices: Sequence[Tuple[int, int]]
+    per_model: torch.Tensor, mid: torch.Tensor, slices: Sequence[Tuple[int, int]],
+    row_offset: Optional[int] = None,
 ) -> torch.Tensor:
     """per_model[mid]: per-model values broadcast to their rows, with the
-    slice-sum gradient of RowsFromModels. slices: (start, end) per model."""
-    return RowsFromModels.apply(per_model, mid, tuple(slices))
+    slice-sum gradient of RowsFromModels. slices: (start, end) per model
+    in table rows; row_offset: mid holds the model ids of the table rows
+    from row_offset on (None: of some rows, the whole table's when they
+    are as many)."""
+    return RowsFromModels.apply(per_model, mid, tuple(slices), row_offset)
 
 
 def draw_flip(table: G.SceneTable, mid: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -166,6 +179,7 @@ def compose_frame(
     opts: RenderOptions = RenderOptions(),
     flip: Optional[torch.Tensor] = None,
     include_mask: Optional[Union[np.ndarray, torch.Tensor]] = None,
+    row_offset: Optional[int] = None,
 ):
     """World-space per-Gaussian attributes for one camera: a dict of
     means3d, scales, quats, opacity, shs, semantic, normals, visible (all
@@ -174,7 +188,10 @@ def compose_frame(
     flip: optional [C] bool, the train-time symmetry flip (actor rows
     mirrored across the y axis of their box frame); train mode only.
     include_mask: optional [M] bool, the models to render (a tensor on
-    the parameters' device is used as it is, numpy is copied there)."""
+    the parameters' device is used as it is, numpy is copied there).
+    row_offset: the table row of params.gaussians' first row, when they
+    are a block of the table's rows (parallel/gauss.py; None: the whole
+    table); every output row equals the whole table's for that row."""
     g = params.gaussians
     mid = aux.model_id
     dev = g.xyz.device
@@ -204,8 +221,8 @@ def compose_frame(
         obj_trans = torch.zeros((M, 3), device=dev)
 
     slices = [(int(a), int(b)) for a, b in table.slices]
-    row_quat = rows_from_models(obj_quat, mid, slices)  # [C, 4]
-    row_trans = rows_from_models(obj_trans, mid, slices)  # [C, 3]
+    row_quat = rows_from_models(obj_quat, mid, slices, row_offset)  # [C, 4]
+    row_trans = rows_from_models(obj_trans, mid, slices, row_offset)  # [C, 3]
 
     xyz_local, rot_local = g.xyz, g.rot
     if opts.mode == "train" and flip is not None:
@@ -350,13 +367,16 @@ def screen_space(
     flip: Optional[torch.Tensor] = None,
     mean2d_offset: Optional[torch.Tensor] = None,
     include_mask: Optional[Union[np.ndarray, torch.Tensor]] = None,
+    row_offset: Optional[int] = None,
 ):
     """Per-Gaussian half of the render: compose + screen-space
     preprocess. Returns (screen, composed dict). mean2d_offset: optional
     [C, 2] zeros added to the screen means, whose gradient is the
-    view-space mean gradient that densification collects."""
+    view-space mean gradient that densification collects. row_offset:
+    see compose_frame (params, aux, flip and mean2d_offset then hold the
+    block's rows)."""
     cam = frame_inp.cam
-    composed = compose_frame(params, aux, table, pose_data, frame_inp, step, opts, flip, include_mask)
+    composed = compose_frame(params, aux, table, pose_data, frame_inp, step, opts, flip, include_mask, row_offset)
     max_deg = max(table.sh_degree_bkgd, table.sh_degree_obj)
     screen = preprocess_gaussians(
         means3d=composed["means3d"],

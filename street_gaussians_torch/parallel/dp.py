@@ -17,6 +17,10 @@ With tile_shards D > 1 each rank renders its camera in D tile-row bands
 in turn (parallel/tiles.py): the port's form of the JAX package's
 ('data', 'tile') mesh.
 
+Multi-host (train.multihost, the JAX package's multi-host runtime):
+each host trains on its own disjoint slice of every shuffled epoch
+(`node_views`), and its ranks take their cameras of the batch from it.
+
 The random draws: every rank draws the flips and sky jitters of all B
 cameras from one generator seeded alike on every rank and takes its
 own (train_lib.take_draws), so the generators stay in step for
@@ -71,6 +75,19 @@ def pop_batch(view_stack: list, batch_size: int) -> list:
     while len(batch) < batch_size:
         batch.append(batch[len(batch) % n_unique])
     return batch
+
+
+def node_views(view_stack: list, node: int, nodes: int) -> list:
+    """Host `node`'s disjoint slice view_stack[node::nodes] of a shuffled
+    epoch, padded by wrapping to ceil(len / nodes) views, so that every
+    host refills at the same iteration and the same-seeded shuffles stay
+    in step (the JAX package's runner.py:770-784). A host's ranks then
+    take their batch_size / nodes cameras from it with pop_batch."""
+    per = -(-len(view_stack) // nodes)
+    mine = view_stack[node::nodes]
+    while len(mine) < per:
+        mine.append(mine[len(mine) % max(len(mine), 1)])
+    return mine
 
 
 def broadcast_state(state, group: Group):

@@ -138,6 +138,26 @@ def join_bands(bands: Bands, outs: List[Dict[str, torch.Tensor]], H: int,
     return res
 
 
+def render_bands(params, aux, table: G.SceneTable, pose_data: Optional[ActorPoseData], frame, step: int,
+                 opts: RenderOptions, screen_composed, bands: Bands, jitter: Optional[torch.Tensor] = None,
+                 keys=IMAGE_KEYS, **kw) -> Dict[str, torch.Tensor]:
+    """The bands this process renders (render_frame(row_shard=) on the
+    frame's shared screen_space, `screen_composed`), joined (join_bands).
+    jitter: the whole frame's [H, W, 2] sky jitter, sliced per band; kw:
+    render_frame's other arguments."""
+    layout = band_layout(frame.cam.H, bands.D)
+    if jitter is not None:
+        jitter = torch.nn.functional.pad(jitter, (0, 0, 0, 0, 0, layout.H_pad - frame.cam.H))
+    outs = []
+    for d in bands.mine:
+        start, rows = layout.band(d)
+        jit = None if jitter is None else jitter[start * TILE:(start + rows) * TILE]
+        with record_function(f"band_{d}"):
+            outs.append(render_frame(params, aux, table, pose_data, frame, step, opts=opts, sky_jitter=jit,
+                                     row_shard=(start, rows), screen_composed=screen_composed, **kw))
+    return join_bands(bands, outs, frame.cam.H, keys)
+
+
 def make_row_sharded_render(
     table: G.SceneTable,
     pose_data: Optional[ActorPoseData],
@@ -156,15 +176,10 @@ def make_row_sharded_render(
     local_opts = dataclasses.replace(opts, instance_capacity=band_capacity(opts.instance_capacity, D))
 
     def render(params, aux, frame, sky_table=None):
-        layout = band_layout(frame.cam.H, D)
         with record_function("screen_space"):
             sc = screen_space(params, aux, table, pose_data, frame, EVAL_STEP, local_opts, include_mask=include_mask)
-        outs = []
-        for d in bands.mine:
-            with record_function(f"band_{d}"):
-                outs.append(render_frame(params, aux, table, pose_data, frame, EVAL_STEP, opts=local_opts,
-                                         sky_table=sky_table, row_shard=layout.band(d), screen_composed=sc))
-        return join_bands(bands, outs, frame.cam.H)
+        return render_bands(params, aux, table, pose_data, frame, EVAL_STEP, local_opts, sc, bands,
+                            sky_table=sky_table)
 
     render.bands = bands
     return render
@@ -204,38 +219,26 @@ def make_tile_sharded_train_step(
         torch.backends.cudnn.allow_tf32 = False
         cam = frame.cam
         dev = state.aux.alive.device
-        layout = band_layout(cam.H, D)
         leaves = {k: p.detach().requires_grad_(True) for k, p in flatten_params(state.params).items()}
         params = unflatten_params(leaves, state.params)
         m2d_off = torch.zeros((C, 2), device=dev, requires_grad=True)
         abs_dummy = torch.zeros((C, 2), device=dev, requires_grad=True)
         if draws is None:
             draws = take_draws(table, state, cam, generator, opts)
-        jitter = draws.sky_jitter
-        if jitter is not None:
-            jitter = torch.nn.functional.pad(jitter, (0, 0, 0, 0, 0, layout.H_pad - cam.H))
 
         def band_renders(jitter=None, mean2d_offset=None, include_mask=None, **kw):
             with record_function("screen_space"):
                 sc = screen_space(params, state.aux, table, pose_data, frame, state.step, local_opts,
                                   flip=draws.flip, mean2d_offset=mean2d_offset, include_mask=include_mask)
-            outs = []
-            for d in bands.mine:
-                start, rows = layout.band(d)
-                jit = None if jitter is None else jitter[start * TILE:(start + rows) * TILE]
-                with record_function(f"band_{d}"):
-                    outs.append(render_frame(params, state.aux, table, pose_data, frame, state.step,
-                                             opts=local_opts, sky_jitter=jit, row_shard=(start, rows),
-                                             screen_composed=sc, **kw))
-            return outs
+            return render_bands(params, state.aux, table, pose_data, frame, state.step, local_opts, sc, bands,
+                                jitter, **kw)
 
-        outs = band_renders(jitter, mean2d_offset=m2d_off, absgrad_dummy=abs_dummy)
-        out = join_bands(bands, outs, cam.H, keys=("rgb", "acc", "depth", "T"))
+        out = band_renders(draws.sky_jitter, mean2d_offset=m2d_off, keys=("rgb", "acc", "depth", "T"),
+                           absgrad_dummy=abs_dummy)
         out_obj = None
         if obj_mask is not None and state.step >= o.densify_until_iter:
             with record_function("object_render"):
-                objs = band_renders(include_mask=obj_mask, compose_sky=False)
-                out_obj = {"acc": bands.rows([b["acc"] for b in objs], cam.H)}
+                out_obj = {"acc": band_renders(include_mask=obj_mask, keys=("acc",), compose_sky=False)["acc"]}
         with record_function("losses"):
             loss, scalars = compute_losses(out, gt, params, cfg, cam.image_id, aux=state.aux, table=table,
                                            out_obj=out_obj)

@@ -12,19 +12,26 @@ in frame order, per-channel PNGs and videos) and `evaluate_metrics`
 (PSNR, SSIM and, where its weights are found, LPIPS over the saved
 renders).
 
-The parallel modes (parallel/dp.py, parallel/tiles.py): `training`
-takes a camera batch (train.batch_size B) over a process group of B
-ranks, one camera a rank, and tile-row bands (train.tile_shards D) in
-turn in one process or over a band group of D ranks, and both at once
-(B ranks, each camera in D bands in its process); rank 0 alone writes
-the logs, checkpoints, PLY and evals. `make_eval_render` and so
-`render_sets` serve in bands with render.parallel "tile=N" (in turn in
-one process).
+The parallel modes (parallel/dp.py, parallel/tiles.py, parallel/gauss.py):
+`training` takes a camera batch (train.batch_size B) over a process
+group of B ranks, one camera a rank; tile-row bands (train.tile_shards
+D) in turn in one process or over a band group of D ranks; Gaussian row
+blocks (train.gauss_shards G) in turn in one process or over a gauss
+group of G ranks (the per-row state split G ways); and the JAX
+runner's compositions: B ranks each with its camera in D bands, B x G
+ranks (gauss x camera: a gauss group of G ranks a camera, inside one
+host) and G ranks each rendering D bands in turn (gauss x tile).
+train.multihost: each host (torchrun --nnodes) trains on its own slice
+of every shuffled epoch (parallel/dp.node_views). Rank 0 alone writes
+the logs, checkpoints, PLY and evals; a row-sharded state is gathered
+on every rank before densify, the opacity reset, evals, saves and the
+final checksum, and sharded again after densify and the reset.
+`make_eval_render` and so `render_sets` serve in bands with
+render.parallel "tile=N", in row blocks with "gauss=N" and in both with
+"gausstile=GxT" (in turn in one process).
 
 Not ported (each raises NotImplementedError where a config asks for it):
-the Gaussian-sharded modes (train.gauss_shards, render.parallel
-"gauss=N" and "gausstile=GxT") and train.multihost (ROADMAP queue 1
-item 6b), the viewer bridge (item 7). The every-1000-iteration
+the viewer bridge (ROADMAP queue 1 item 7). The every-1000-iteration
 `log_images` grid is left out (item 7).
 """
 
@@ -32,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import json
 import os
 import random
@@ -212,23 +220,36 @@ def make_eval_render(cfg: Config, scene: Scene, include_mask=None):
     parameters (serving), else the table is built per call.
     render.parallel "tile=N" renders every view in N tile-row bands in
     turn (parallel/tiles.make_row_sharded_render: the whole frame's
-    outputs, the overflow counters summed over the bands)."""
+    outputs, the overflow counters summed over the bands), "gauss=N"
+    composes the table's rows in N blocks in turn and "gausstile=GxT"
+    both (parallel/gauss.make_gauss_sharded_render: the whole frame's
+    outputs, the integer ones equal to the single render's)."""
     opts = render_opts_from_cfg(cfg, "eval")
     if include_mask is not None:
         include_mask = torch.as_tensor(include_mask, device=scene.table.start_frame.device)
     par = str(cfg.render.get("parallel", "") or "")
     if par:
         kind, _, n = par.partition("=")
-        if kind in ("gauss", "gausstile"):
-            _not_ported(f"render.parallel={par!r} (the Gaussian-sharded renderers)", "6b")
-        if kind != "tile":
+        if kind == "gausstile":
+            from street_gaussians_torch.parallel.gauss import make_gauss_sharded_render
+
+            dg, _, dt = n.partition("x")
+            dg, dt = int(dg), int(dt or 2)
+            inner = make_gauss_sharded_render(scene.table, scene.pose_data, opts, dg, tile_shards=dt,
+                                              include_mask=include_mask)
+            print(f"[render] gauss x tile sharded rendering: {dg} row blocks x {dt} tile bands, in turn")
+            return torch.no_grad()(inner)
+        if kind not in ("tile", "gauss"):
             raise ValueError(f"render.parallel={par!r}: unknown kind {kind!r} "
                              "(expected 'tile=N', 'gauss=N', or 'gausstile=GxT')")
         if int(n or 1) > 1:
-            from street_gaussians_torch.parallel.tiles import make_row_sharded_render
-
-            inner = make_row_sharded_render(scene.table, scene.pose_data, opts, int(n), include_mask=include_mask)
-            print(f"[render] tile-sharded rendering in {int(n)} bands, in turn")
+            if kind == "tile":
+                from street_gaussians_torch.parallel.tiles import make_row_sharded_render as make
+            else:
+                from street_gaussians_torch.parallel.gauss import make_gauss_sharded_render as make
+            inner = make(scene.table, scene.pose_data, opts, int(n), include_mask=include_mask)
+            print(f"[render] {kind}-sharded rendering in {int(n)} {'bands' if kind == 'tile' else 'row blocks'}, "
+                  "in turn")
             return torch.no_grad()(inner)
 
     @torch.no_grad()
@@ -282,29 +303,52 @@ def param_checksum(params: SceneParams) -> float:
 
 class _Plan:
     """How training runs: `batch` cameras a step (one a rank of
-    `data_group`), each rendered in `tile_shards` bands (over
-    `band_group` or in turn)."""
+    `data_group`, or one a gauss group), each rendered in `tile_shards`
+    bands (over `band_group` or in turn), the table's rows in
+    `gauss_shards` blocks (over `gauss_group` or in turn); `nodes` hosts,
+    each training on its own view slice (train.multihost). The checks
+    and messages are the JAX runner's (runner.py:405-492)."""
 
     def __init__(self, cfg: Config, group=None):
         t = cfg.train
-        if t.get("multihost", False):
-            _not_ported("train.multihost (the multi-host view slicing)", "6b")
-        if int(t.get("gauss_shards", 0) or 0) > 1:
-            _not_ported("train.gauss_shards (Gaussian-sharded training)", "6b")
         if cfg.get("viewer", {}).get("enabled"):
             _not_ported("viewer.enabled (the SIBR viewer bridge)", 7)
         B = int(t.get("batch_size", 1) or 1)
         D = int(t.get("tile_shards", 0) or 0)
+        Gs = int(t.get("gauss_shards", 0) or 0)
         ranks = group.size if group is not None else 1
-        self.batch, self.tile_shards = 1, max(D, 1)
-        self.data_group = self.band_group = None
+        self.nodes = group.nodes if group is not None and t.get("multihost", False) else 1
+        self.node = group.node if self.nodes > 1 else 0
+        self.batch, self.tile_shards, self.gauss_shards = 1, max(D, 1), max(Gs, 1)
+        self.data_group = self.band_group = self.gauss_group = None
+        self.first_slice = None  # this host's views of the first epoch (train.multihost)
+        if D > 1 and self.nodes > 1:
+            raise NotImplementedError(
+                "train.tile_shards across processes is not wired — tile bands exchange per-band images every "
+                "step, which wants ICI; use camera-DP (train.multihost) across hosts and tile-sharding within "
+                "one host")
+        if Gs > 1:
+            self._gauss(B, D, Gs, group, ranks)
+        else:
+            self._cameras_and_bands(B, D, group, ranks)
+        if self.nodes > 1 and self.data_group is None and self.gauss_group is None:
+            raise RuntimeError(
+                f"train.multihost with {self.nodes} processes requires batch_size >= {self.nodes} (got {B}) so "
+                "the data-parallel step ties the hosts together")
+        self.group = group if (self.data_group or self.band_group or self.gauss_group) is not None else None
+        if ranks > 1 and self.group is None:
+            raise RuntimeError(f"a process group of {ranks} ranks needs train.batch_size {ranks} or "
+                               f"train.tile_shards {ranks}")
+
+    def _cameras_and_bands(self, B: int, D: int, group, ranks: int) -> None:
         if B > 1:
             if ranks > B:
                 raise RuntimeError(f"train.batch_size={B} over {ranks} ranks: launch {B} ranks")
             if ranks == B:
                 self.batch, self.data_group = B, group
                 print(f"[dp] camera data parallel: {B} cameras a step, one a rank"
-                      + (f", each in {D} tile bands in turn" if D > 1 else ""), flush=True)
+                      + (f", each in {D} tile bands in turn" if D > 1 else "")
+                      + (f", over {self.nodes} hosts" if self.nodes > 1 else ""), flush=True)
             elif D > 1:
                 raise RuntimeError(f"train.tile_shards={D} with batch_size={B} needs {B} ranks, have {ranks}")
             else:
@@ -320,13 +364,47 @@ class _Plan:
                 print(f"[tile] tile-sharded training in {D} tile bands, in turn", flush=True)
             else:
                 raise RuntimeError(f"train.tile_shards={D} over {ranks} ranks: launch 1 or {D} ranks")
-        self.group = self.data_group or self.band_group
-        if ranks > 1 and self.group is None:
-            raise RuntimeError(f"a process group of {ranks} ranks needs train.batch_size {ranks} or "
-                               f"train.tile_shards {ranks}")
+
+    def _gauss(self, B: int, D: int, Gs: int, group, ranks: int) -> None:
+        """The gauss layouts: G ranks (or G blocks in turn in one
+        process), B x G ranks (gauss x camera, the gauss groups inside a
+        host), G ranks each rendering D bands in turn (gauss x tile)."""
+        nodes = self.nodes
+        if D > 1 and B > 1:
+            raise NotImplementedError("3D data x gauss x tile training is not wired — drop batch_size or one "
+                                      "shard axis")
+        if B > 1:
+            if nodes > 1 and B % nodes:
+                raise RuntimeError(f"multi-host gauss x DP needs batch_size divisible by process_count "
+                                   f"({B} % {nodes})")
+            if ranks != B * Gs:
+                raise RuntimeError(f"train.gauss_shards={Gs} x batch_size={B} needs {B * Gs} ranks, have {ranks}")
+            self.batch = B
+            self.gauss_group, self.data_group = group.split(Gs, data_per_node=B // nodes if nodes > 1 else None)
+            print(f"[gauss] sharded training: {Gs} row shards x {B} cameras (2D: gauss groups of {Gs} ranks"
+                  + (f", {nodes} hosts)" if nodes > 1 else ")"), flush=True)
+            return
+        if nodes > 1 and Gs % nodes:
+            raise RuntimeError(f"multi-host gauss_shards={Gs} must be divisible by process_count={nodes} "
+                               "(every process must hold row shards)")
+        if ranks == Gs:
+            self.gauss_group = group
+        elif ranks != 1:
+            raise RuntimeError(f"train.gauss_shards={Gs} needs {Gs} ranks (or one process: the row blocks in "
+                               f"turn), have {ranks}")
+        where = "one a rank" if self.gauss_group is not None else "in turn"
+        print(f"[gauss] sharded training over {Gs} row shards, {where}"
+              + (f", each rank rendering {D} tile bands in turn" if D > 1 else "")
+              + (f", across {nodes} hosts" if nodes > 1 else ""), flush=True)
 
     def make_step(self, cfg: Config, scene: Scene):
         opts = render_opts_from_cfg(cfg, "train")
+        if self.gauss_shards > 1:
+            from street_gaussians_torch.parallel.gauss import make_gauss_sharded_train_step
+
+            return make_gauss_sharded_train_step(cfg, scene.table, scene.pose_data, opts, self.gauss_shards,
+                                                 group=self.gauss_group, data_group=self.data_group,
+                                                 tile_shards=self.tile_shards)
         if self.data_group is not None:
             from street_gaussians_torch.parallel.dp import make_data_parallel_train_step
 
@@ -338,6 +416,44 @@ class _Plan:
             return make_tile_sharded_train_step(cfg, scene.table, scene.pose_data, opts, self.tile_shards,
                                                 group=self.band_group)
         return make_train_step(cfg, scene.table, scene.pose_data, opts)
+
+    def shards(self, scene: Scene):
+        """The row blocks of this process (parallel/gauss.Shards); one
+        block, the whole table, without gauss_shards. Checks the scene
+        against the layout first."""
+        from street_gaussians_torch.parallel.gauss import Shards
+
+        if self.nodes > 1 and self.batch > 1 and self.gauss_shards == 1:
+            hw = {(v.H, v.W) for v in scene.train_views}
+            if len(hw) > 1:
+                # hosts stack their batches apart: different resolutions
+                # at one step would give the ranks different collectives
+                raise RuntimeError(f"multi-host camera-DP requires a single camera resolution, got {sorted(hw)} "
+                                   "— restrict data.cameras to one sensor size")
+        C = scene.table.capacity
+        if C % self.gauss_shards:
+            raise RuntimeError(f"scene capacity {C} not divisible by gauss_shards={self.gauss_shards}")
+        return Shards(C, self.gauss_shards, self.gauss_group)
+
+    def view(self, view_stack: List[CameraView], scene: Scene, rng: random.Random) -> CameraView:
+        """This rank's next view: refill the stack (shuffled; across hosts
+        this host's slice) when it is empty, then pop this rank's camera
+        of the batch."""
+        from street_gaussians_torch.parallel.dp import node_views, pop_batch
+
+        if not view_stack:
+            view_stack.extend(scene.train_views)
+            rng.shuffle(view_stack)
+            if self.nodes > 1 and self.batch > 1:
+                view_stack[:] = node_views(view_stack, self.node, self.nodes)
+                if self.first_slice is None:
+                    self.first_slice = [v.image_name for v in view_stack]
+                    print(f"[multihost] host {self.node}/{self.nodes}: {len(view_stack)} views an epoch, "
+                          f"first epoch {self.first_slice}", flush=True)
+        if self.batch == 1:
+            return view_stack.pop()
+        local = self.batch // self.nodes
+        return pop_batch(view_stack, local)[self.data_group.rank % local]
 
 
 class _Watchdog:
@@ -408,9 +524,11 @@ class _Watchdog:
 def training(cfg: Config, progress: bool = True, device=None, group=None) -> Dict:
     """Full training run (ref: train.py:24-225): one camera a step, or
     with `group` (a parallel.comm.Group, its ranks each running this
-    function) the camera batch or band group of train.batch_size and
-    train.tile_shards (see _Plan); the ranks stay bit-equal, and rank 0
-    alone writes. Returns the final metrics (ema_psnr, ema_loss,
+    function) the camera batch, band group or gauss group of
+    train.batch_size, train.tile_shards and train.gauss_shards, and with
+    train.multihost a view slice a host (see _Plan); the ranks' states
+    stay bit-equal (a gauss group's hold their rows of one state), and
+    rank 0 alone writes. Returns the final metrics (ema_psnr, ema_loss,
     num_alive, param_checksum) and, beside them, `timing` (seconds per
     stage, and ms/step over each 10-iteration window), the watchdog's
     `growth` events and the ground-truth cache's bytes."""
@@ -428,6 +546,7 @@ def training(cfg: Config, progress: bool = True, device=None, group=None) -> Dic
             save_scene_artifacts(cfg, scene)
         except Exception as exc:  # artifacts are viewer conveniences only
             print(f"[warn] scene artifacts not written: {exc}")
+    shards = plan.shards(scene)
     params = build_initial_params(cfg, scene, device)
     state = init_train_state(params, scene.aux_init)
     if plan.group is not None:
@@ -443,6 +562,13 @@ def training(cfg: Config, progress: bool = True, device=None, group=None) -> Dic
     step_fn = build_train_step()
     densify_fn = make_densify_fn(cfg, scene.table)
     reset_fn = make_reset_opacity_fn()
+    if shards.group is not None:
+        # densify and the reset on the whole table, sharded again
+        # (runner.py:826-851 re-places the rows)
+        from street_gaussians_torch.parallel.gauss import whole_state
+
+        densify_fn = functools.partial(whole_state, densify_fn, shards)
+        reset_fn = functools.partial(whole_state, reset_fn, shards)
     eval_render = make_eval_render(cfg, scene)
 
     start_iter = 0
@@ -453,6 +579,8 @@ def training(cfg: Config, progress: bool = True, device=None, group=None) -> Dic
             state, start_iter = restored, it
             print(f"[resume] restored iteration {it}")
         timing["resume_s"] = time.perf_counter() - t0
+    # the per-row leaves split over the gauss group (runner.py:671-674)
+    state = shards.shard(state)
 
     o = cfg.optim
     iters = cfg.train.iterations
@@ -486,15 +614,7 @@ def training(cfg: Config, progress: bool = True, device=None, group=None) -> Dic
     windows, t_window, marks = [], time.perf_counter(), set()
     try:
         for iteration in range(start_iter + 1, iters + 1):
-            if not view_stack:
-                view_stack = list(scene.train_views)
-                rng.shuffle(view_stack)
-            if plan.batch > 1:
-                from street_gaussians_torch.parallel.dp import pop_batch
-
-                view = pop_batch(view_stack, plan.batch)[plan.data_group.rank]
-            else:
-                view = view_stack.pop()
+            view = plan.view(view_stack, scene, rng)
             misses = gt_cache.misses
             gt = gt_cache.get(view)
             if gt_cache.misses != misses:
@@ -544,25 +664,30 @@ def training(cfg: Config, progress: bool = True, device=None, group=None) -> Dic
                     for k, v in values.items():
                         tb.add_scalar(f"train/{k}", v, iteration)
 
+            saves = iteration in cfg.train.save_iterations or iteration in cfg.train.checkpoint_iterations
+            if iteration in cfg.train.test_iterations or saves:
+                # a collective over the gauss group: every rank, before
+                # the writer's gates (runner.py:1017-1022)
+                state_full = shards.gather(state)
             if iteration in cfg.train.test_iterations and is_writer:
                 t0 = time.perf_counter()
-                report = evaluate_psnr(cfg, scene, state, eval_render, gt_cache=gt_cache)
+                report = evaluate_psnr(cfg, scene, state_full, eval_render, gt_cache=gt_cache)
                 timing["eval_s"] += time.perf_counter() - t0
                 print(f"[eval @{iteration}] {report}", flush=True)
                 log_f.write(json.dumps({"iteration": iteration, **report}) + "\n")
                 log_f.flush()
                 marks.add("eval")
 
-            if is_writer and (iteration in cfg.train.save_iterations
-                              or iteration in cfg.train.checkpoint_iterations):
+            if is_writer and saves:
                 t0 = time.perf_counter()
                 if iteration in cfg.train.save_iterations:
-                    ckpt_lib.save_point_cloud(cfg.point_cloud_dir, iteration, state.params.gaussians, state.aux,
-                                              scene.table)
+                    ckpt_lib.save_point_cloud(cfg.point_cloud_dir, iteration, state_full.params.gaussians,
+                                              state_full.aux, scene.table)
                 if iteration in cfg.train.checkpoint_iterations:
-                    ckpt_lib.save_train_state(cfg.trained_model_dir, iteration, state)
+                    ckpt_lib.save_train_state(cfg.trained_model_dir, iteration, state_full)
                 timing["save_s"] += time.perf_counter() - t0
                 marks.add("save")
+            state_full = None
     finally:
         log_f.close()
         if tb is not None:
@@ -571,7 +696,9 @@ def training(cfg: Config, progress: bool = True, device=None, group=None) -> Dic
     final = {"ema_psnr": ema_psnr, "ema_loss": ema_loss}
     if scalars:
         final["num_alive"] = int(scalars["num_alive"])
-    final["param_checksum"] = param_checksum(state.params)
+    final["param_checksum"] = param_checksum(shards.gather(state).params)
+    if plan.first_slice is not None:
+        final["host_views"] = {"host": plan.node, "hosts": plan.nodes, "first_epoch": plan.first_slice}
     timing.update(ground_truth_s=gt_cache.seconds, total_s=time.perf_counter() - t_begin,
                   windows=windows)
     final.update(timing=timing, growth=watchdog.events, gt_cache_bytes=gt_cache.nbytes,

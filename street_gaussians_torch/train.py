@@ -12,7 +12,16 @@ when the host has one card, shared by its ranks), and train together:
     torchrun --standalone --nproc_per_node B -m street_gaussians_torch.train \
         --config CONFIG.yaml train.batch_size B
 
-(or train.tile_shards B: one band a rank); rank 0 alone writes.
+(or train.tile_shards B: one band a rank; train.gauss_shards B: the
+table's rows in B blocks, one a rank); rank 0 alone writes. Several
+hosts (one machine standing for two: --master_addr 127.0.0.1, the ranks
+then share its cards over Gloo), each training on its own slice of the
+views:
+
+    torchrun --nnodes 2 --node_rank I --nproc_per_node L --master_addr A --master_port P \
+        -m street_gaussians_torch.train --config CONFIG.yaml train.multihost true train.batch_size 2
+
+Every rank prints its final numbers on a `[train] final {...}` line.
 Without --config:
 
     python -m street_gaussians_torch.train [--steps N] [--device cuda]
@@ -38,6 +47,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import sys
 import time
 
 import torch
@@ -149,10 +159,17 @@ def main(argv=None):
 
             group = comm.init_group(device=args.device)
             try:
-                return training(cfg, group=group)
+                final = training(cfg, group=group)
             finally:
                 comm.close_group()
-        return training(cfg, device=resolve_device(args.device))
+        else:
+            final = training(cfg, device=resolve_device(args.device))
+        keys = ("param_checksum", "ema_loss", "ema_psnr", "num_alive", "start_iteration", "iterations", "host_views")
+        # One write with its newline: under torchrun the ranks share a pipe, and
+        # print's separate write of the end lets another rank's line land between.
+        sys.stdout.write("[train] final " + json.dumps({k: final[k] for k in keys if k in final}) + "\n")
+        sys.stdout.flush()
+        return final
     if args.opts:
         ap.error(f"KEY VALUE overrides need --config: {args.opts}")
 

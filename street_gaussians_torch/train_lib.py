@@ -282,19 +282,24 @@ def compute_losses(
 
 
 def take_draws(table: G.SceneTable, state: TrainState, cam, generator: Optional[torch.Generator],
-               opts: RenderOptions, cameras: int = 1, index: int = 0) -> Draws:
+               opts: RenderOptions, cameras: int = 1, index: int = 0,
+               model_id: Optional[torch.Tensor] = None) -> Draws:
     """A step's random draws from `generator`, flip first, then the sky
     jitter of a [cam.H, cam.W] image (a scene with a sky); none without
     a generator or outside train mode. With `cameras` > 1 (a camera
     batch, parallel/dp.py) the draws of all the batch's cameras are taken
     in turn, so that every rank's generator stays in step with the
-    others', and those of camera `index` are returned."""
+    others', and those of camera `index` are returned. model_id: the
+    [C] model ids of the whole table (default state.aux.model_id), for a
+    state that holds a block of its rows (parallel/gauss.py): the flip is
+    the whole table's."""
     if opts.mode != "train" or generator is None:
         return Draws(None, None)
     dev = state.aux.alive.device
+    mid = state.aux.model_id if model_id is None else model_id
     mine = None
     for b in range(cameras):
-        flip = draw_flip(table, state.aux.model_id, generator)
+        flip = draw_flip(table, mid, generator)
         jitter = draw_sky_jitter(cam.H, cam.W, generator, dev) if state.params.sky is not None else None
         if b == index:
             mine = Draws(flip, jitter)
@@ -303,7 +308,7 @@ def take_draws(table: G.SceneTable, state: TrainState, cam, generator: Optional[
 
 def apply_gradients(cfg: Config, table: G.SceneTable, state: TrainState, cam, scalars: dict, out: dict,
                     g_params: Dict[str, torch.Tensor], g_m2d: torch.Tensor, g_abs: torch.Tensor,
-                    data_group=None):
+                    data_group=None, row_group=None):
     """The post-gradient half of a train step, which the single, camera
     data parallel and tile-band steps share: the densification
     statistics (while step < densify_until_iter), the per-row masks, the
@@ -314,7 +319,9 @@ def apply_gradients(cfg: Config, table: G.SceneTable, state: TrainState, cam, sc
     the max), the gradients and scalars are averaged, the overflow
     counters summed and a row is active where its model is in range in
     any camera (the JAX package's parallel/dp.py); every rank then
-    takes the same update. Returns (new state, {name: 0-dim tensor})."""
+    takes the same update. With row_group (the gauss group of a state
+    that holds a block of the rows, parallel/gauss.py) num_alive is
+    summed over the group. Returns (new state, {name: 0-dim tensor})."""
     o = cfg.optim
     step = state.step
     collect = 1.0 if step < o.densify_until_iter else 0.0
@@ -346,6 +353,8 @@ def apply_gradients(cfg: Config, table: G.SceneTable, state: TrainState, cam, sc
 
     scalars["overflow"], scalars["overflow_instance"], scalars["overflow_tile"] = ovf
     scalars["num_alive"] = aux.alive.sum()
+    if row_group is not None:
+        scalars["num_alive"] = row_group.all_reduce([scalars["num_alive"]], "sum")[0]
     scalars = {k: v.detach() for k, v in scalars.items()}
     new_state = TrainState(
         params=unflatten_params(new_values, state.params), adam=new_adam, aux=aux, step=step + 1
@@ -353,23 +362,25 @@ def apply_gradients(cfg: Config, table: G.SceneTable, state: TrainState, cam, sc
     return new_state, scalars
 
 
-def step_around(loss_and_grads, cfg: Config, table: G.SceneTable, opts: RenderOptions, data_group=None):
+def step_around(loss_and_grads, cfg: Config, table: G.SceneTable, opts: RenderOptions, data_group=None,
+                row_group=None, model_id: Optional[torch.Tensor] = None):
     """The train step around loss_and_grads(state, frame, gt, draws=):
     step_fn(state, frame, gt, generator=None, *, draws=None) -> (new
     state, {name: 0-dim tensor}): the draws (take_draws; with data_group
-    those of the rank's camera of the batch), the render's gradients,
-    the PSNR and apply_gradients."""
+    those of the rank's camera of the batch; with model_id the whole
+    table's flip), the render's gradients, the PSNR and apply_gradients
+    (row_group: see there)."""
     cameras, index = (1, 0) if data_group is None else (data_group.size, data_group.rank)
 
     def step_fn(state: TrainState, frame: FrameInput, gt: GroundTruth,
                 generator: Optional[torch.Generator] = None, *, draws: Optional[Draws] = None):
         if draws is None:
-            draws = take_draws(table, state, frame.cam, generator, opts, cameras, index)
+            draws = take_draws(table, state, frame.cam, generator, opts, cameras, index, model_id)
         scalars, out, g_params, g_m2d, g_abs = loss_and_grads(state, frame, gt, draws=draws)
         with torch.no_grad(), record_function("optimizer"):
             scalars["psnr"] = L.psnr(out["rgb"], gt.image, gt.mask)
             return apply_gradients(cfg, table, state, frame.cam, scalars, out, g_params, g_m2d, g_abs,
-                                   data_group)
+                                   data_group, row_group)
 
     step_fn.loss_and_grads = loss_and_grads
     return step_fn

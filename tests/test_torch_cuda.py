@@ -479,3 +479,36 @@ def test_two_camera_ranks_share_one_card(cuda_device, tmp_path):
         for r in (a, b):
             n = r["launches"]
             assert (n["tile_blend_instances"], n["tile_blend_bwd"], n["segment_rowsum"]) == (D, D, 2 * D), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,T", [(2, 1), (4, 1), (2, 2)])
+def test_gauss_sharded_render_matches_the_whole_frame(cuda_device, G, T):
+    """The table's rows composed in G blocks in turn and joined (and the
+    joined screen in T tile-row bands): the integer outputs and radii
+    equal the whole frame's, the images bit-equal without bands and at
+    the blend tolerances with them (sky_downsample 1)."""
+    import dataclasses
+
+    from chip_smoke import compare_frames
+    from street_gaussians_torch import serve
+    from street_gaussians_torch.models.renderer import render_frame
+    from street_gaussians_torch.parallel import gauss
+
+    scene, params = serve.bench_scene(seed=3, device=cuda_device, **SMALL_SCENE)
+    opts = dataclasses.replace(serve.SERVE_OPTS, sky_downsample=1)
+    frame = scene.frames[1]
+    with torch.no_grad():
+        whole = render_frame(params, scene.aux, scene.table, scene.pose_data, frame, serve.SERVE_STEP, opts=opts)
+        before = tile_raster2.tile_blend_instances.launches
+        got = gauss.make_gauss_sharded_render(scene.table, scene.pose_data, opts, G, tile_shards=T)(
+            params, scene.aux, frame)
+    torch.cuda.synchronize()
+    assert tile_raster2.tile_blend_instances.launches == before + T
+    assert torch.equal(got["radii"], whole["radii"])
+    for k in ("num_instances", "overflow", "overflow_instance", "overflow_tile"):
+        assert int(got[k]) == int(whole[k]), k
+    if T == 1:
+        for k in ("rgb", "depth", "acc", "T"):
+            assert torch.equal(got[k], whole[k]), k
+    compare_frames(got, whole, f"{G} row blocks x {T} bands")

@@ -523,14 +523,19 @@ def test_render_parallel_tile_through_the_runner(tmp_path):
 
 
 def test_sharded_parallel_kinds_raise(tmp_path):
-    """gauss=N and gausstile=GxT are ROADMAP item 6b; unknown kinds are
-    refused as the JAX runner refuses them."""
+    """gauss=N and gausstile=GxT give the Gaussian-sharded renderers (in
+    turn: tests/test_torch_parallel_gauss.py holds them against JAX); a
+    capacity that N does not divide and unknown kinds are refused as the
+    JAX runner refuses them."""
     cfg = t_default_config()
-    scene = types.SimpleNamespace(table=types.SimpleNamespace(start_frame=torch.zeros(1)), pose_data=None)
-    for par in ("gauss=2", "gausstile=2x2"):
+    table = types.SimpleNamespace(start_frame=torch.zeros(1), capacity=8, slices=np.array([[0, 8]]))
+    scene = types.SimpleNamespace(table=table, pose_data=None)
+    for par, G in (("gauss=2", 2), ("gausstile=2x2", 2), ("gauss=4", 4)):
         cfg.render.parallel = par
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            trunner.make_eval_render(cfg, scene)
+        assert trunner.make_eval_render(cfg, scene).shards.G == G
+    cfg.render.parallel = "gauss=3"
+    with pytest.raises(RuntimeError, match="capacity 8 must divide the 'gauss' axis size 3"):
+        trunner.make_eval_render(cfg, scene)
     cfg.render.parallel = "rows=2"
     with pytest.raises(ValueError, match="unknown kind"):
         trunner.make_eval_render(cfg, scene)

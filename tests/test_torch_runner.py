@@ -415,11 +415,16 @@ def test_non_finite_loss_fails_loudly(small_seq, tmp_path):
 
 
 def test_unported_branches_raise(small_seq, tmp_path):
-    for opts, item in ((["train.multihost", "true"], "6b"), (["train.gauss_shards", "2"], "6b"),
-                       (["viewer.enabled", "true"], 7)):
-        cfg = small_cfg(small_seq, str(tmp_path / "out"), 1, *opts)
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            trunner.training(cfg, progress=False, device="cpu")
+    """The viewer (item 7) is the one branch left unported; the
+    Gaussian-sharded and multi-host branches (item 6b) run
+    (tests/test_torch_parallel_gauss.py), and refuse a scene whose
+    capacity gauss_shards does not divide with the JAX runner's message."""
+    cfg = small_cfg(small_seq, str(tmp_path / "out"), 1, "viewer.enabled", "true")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        trunner.training(cfg, progress=False, device="cpu")
+    cfg = small_cfg(small_seq, str(tmp_path / "out"), 1, "train.gauss_shards", "3")
+    with pytest.raises(RuntimeError, match="not divisible by gauss_shards=3"):
+        trunner.training(cfg, progress=False, device="cpu")
 
 
 def test_clis_with_config(tmp_path, capsys):
