@@ -132,12 +132,30 @@
    launches as two hosts (--nnodes 2, --master_addr 127.0.0.1) at
    train.multihost true train.batch_size 2 (each host's own views, equal
    param_checksum, one log, one checkpoint);
-13. prints one `kernels` JSON line with all eight kernels (with the
+13. the per-pixel oracle and the demo scene (`[oracle]`, `[demo]`
+   lines): 13a holds rasterize (kernels 2.1, 2.3) against the oracle
+   (ops.rasterize.render_reference, plain torch, a loop over the
+   depth-sorted Gaussians) on 2,000 random Gaussians at 128x192 and on a
+   high-opacity scene (the early-stop path), the gradients of
+   tests/test_rasterizer.py's gradient-parity loss (kernels 2.2, 2.4)
+   against the oracle's autograd, and render_gaussians with shs and with
+   colors_precomp against the oracle; 13b builds the demo scene
+   (script.make_demo_scene: 8 frames of camera 0 at 480x320, images
+   rendered from a ground-truth model) and trains it through `train
+   --config configs/demo_synthetic.yaml` for its own 2,000 iterations,
+   then `render` and `metrics`: every record finite, no drop (or growth
+   by the watchdog's rule), the log_images grids, train_psnr at 2,000 at
+   least 28 and 2 above its value at 500, beside the JAX package's
+   records; 13c runs `make_ply` on the checkpoint (the vertices the rows
+   visible at viewer.frame_id); 13d runs the root
+   script/summarize_train_log.py on the log;
+14. prints one `kernels` JSON line with all eight kernels (with the
    loaded sequence's launches before and after the gate, step 9's in
    training and in render_sets, step 10's F = 27 times, bounds,
-   launches and the F = 4 times in turns with them, and steps 11's and
-   12's launches on the band and gauss paths);
-14. prints {"ok": true, "device": {...}} as the last line.
+   launches and the F = 4 times in turns with them, steps 11's and
+   12's launches on the band and gauss paths, and step 13's launches
+   with the oracle's errors);
+15. prints {"ok": true, "device": {...}} as the last line.
 
 Any failure raises (exit code != 0). Without CUDA, or without the rest
 of the repository beside it, it fails before printing a result.
@@ -676,6 +694,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         # ---- 12. Gaussian-sharded rendering and training, multi-host ----
         gs = gauss_phase(dev, scene, params, os.path.join(tmp, "seq"), tmp, smi)
+        torch.cuda.empty_cache()
+        # ---- 13. the per-pixel oracle, the demo scene's convergence, make_ply ----
+        s13 = step13_phase(dev, tmp, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -718,6 +739,14 @@ def main() -> int:
         gauss_launches.update({k: v[name] for k, v in gs["launches"].items() if k != "serve" and name in v})
         if gauss_launches:
             extra = {**extra, "gauss_launches": gauss_launches}
+        step13_launches = {k: v[name] for k, v in s13["launches"].items() if name in v}
+        if step13_launches:
+            oracle = s13["oracle_errors"]
+            if name in ("expand_runs", "tile_blend_instances"):
+                oracle_err = max(v for k, v in oracle.items() if k != "gradients_scaled")
+            else:
+                oracle_err = oracle["gradients_scaled"]
+            extra = {**extra, "step13_launches": step13_launches, "oracle_err": oracle_err}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": n, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
                         "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": lib, **extra})
@@ -732,6 +761,7 @@ def main() -> int:
     log(f"[wide] summary: {json.dumps(wide['numbers'])}")
     log(f"[parallel] summary: {json.dumps(par['numbers'])}")
     log(f"[gauss] summary: {json.dumps(gs['numbers'])}")
+    log(f"[demo] summary: {json.dumps(s13['numbers'])}")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3416,6 +3446,311 @@ def gauss_phase(dev, scene, params, root: str, tmp: str, smi: str) -> dict:
             "launches": {"serve": a["launches"], **b["launches"],
                          **{k: v for k, v in c.items() if k.startswith("render_launches")}},
             "numbers": numbers}
+
+
+# ---- step 13: the per-pixel oracle, the demo scene's convergence, make_ply ----
+ORACLE_HW = (128, 192)
+ORACLE_N = 2_000
+# tests/test_rasterizer.py:131-145: the tile path against the oracle
+ORACLE_TOL = {"rgb": 2e-5, "depth": 2e-4, "acc": 2e-5}
+ORACLE_TOL_OPAQUE = {"rgb": 5e-5, "acc": 5e-5}  # opacities up to 0.999: the early-stop path
+ORACLE_GRAD_ATOL = 1e-4  # test_gradient_parity: each leaf scaled by its largest |oracle value|
+DEMO_FRAMES = 8
+DEMO_ITERS = 2_000  # configs/demo_synthetic.yaml's own iterations: never cut
+DEMO_MIN_PSNR = 28.0
+DEMO_MIN_GAIN = 2.0  # train_psnr at DEMO_ITERS against its value at 500
+# the JAX package's demo-scene train PSNRs at 500 / 1,000 / 2,000 (BASELINE.md:55-56)
+JAX_DEMO_PSNR = {"jax_cpu_exact": (25.2, 26.8, 32.1), "jax_tpu": (27.7, 30.7, 47.9)}
+
+
+def oracle_case(seed: int, n: int, H: int, W: int, dev, opacity_max: float = 0.9, spread: float = 1.2):
+    """tests/test_rasterizer.make_scene's random Gaussians in front of a
+    pinhole camera (focal 60 at 64 pixels wide, scaled with W), drawn by
+    numpy: (cam, means, scales, quats, opacity, shs [n, 16, 3])."""
+    from street_gaussians_torch.utils.camera import make_camera
+
+    rng = np.random.default_rng(seed)
+    focal = 60.0 * W / 64
+    K = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]], np.float32)
+    cam = make_camera(K, np.eye(4, dtype=np.float32), H, W, device=dev)
+    means = np.stack([rng.uniform(-spread, spread, n), rng.uniform(-spread, spread, n), rng.uniform(1.0, 6.0, n)],
+                     axis=-1)
+    scales = rng.uniform(0.02, 0.15, (n, 3))
+    quats = rng.normal(size=(n, 4))
+    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+    opacity = rng.uniform(0.2, opacity_max, n)
+    shs = rng.normal(size=(n, 16, 3)) * 0.3
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    return cam, t(means), t(scales), t(quats), t(opacity), t(shs)
+
+
+def oracle_screen(cam, means, scales, quats, opacity, shs, sh_degree: int = 2, colors_precomp=None):
+    from street_gaussians_torch.ops.preprocess import preprocess_gaussians
+
+    return preprocess_gaussians(means, scales, quats, opacity, shs, cam.w2c, cam.full_proj, cam.cam_center,
+                                cam.H, cam.W, cam.focal_x, cam.focal_y, cam.tan_fovx, cam.tan_fovy,
+                                sh_degree=sh_degree, colors_precomp=colors_precomp)
+
+
+def compare_oracle(got: dict, ref: dict, tol: dict, what: str) -> float:
+    """The tile path's images against the oracle's: every pixel within
+    tol, but where the two orders of f32 sums flip which Gaussian stops
+    the pixel: at most max(1, B_FLIP_FRACTION * pixels) pixels, each
+    within B_FLIP_TOL * max(1, max |oracle|). Returns the max abs error."""
+    worst = 0.0
+    for k, t in tol.items():
+        if not torch.isfinite(got[k]).all():
+            raise AssertionError(f"{what}: non-finite {k}")
+        d = (got[k] - ref[k]).abs()
+        d = d.amax(dim=-1) if d.dim() == 3 else d
+        n_off, n_pix = int((d > t).sum()), d.numel()
+        err = float(d.max())
+        worst = max(worst, err)
+        log(f"[oracle] {what} {k}: max_abs_err {err:.3e}; pixels beyond {t}: {n_off} of {n_pix}")
+        if n_off > max(1, B_FLIP_FRACTION * n_pix) or err > B_FLIP_TOL * max(1.0, float(ref[k].abs().max())):
+            raise AssertionError(f"{what} {k}: the tile path disagrees with the oracle")
+    return worst
+
+
+def compare_oracle_grads(got: dict, ref: dict, what: str) -> float:
+    """Gradients of the tile path against the oracle's autograd, each
+    leaf scaled by its largest |oracle value|: within ORACLE_GRAD_ATOL on
+    all but max(1, BWD_FLIP_LANES * rows) Gaussians (a termination flip
+    moves the Gaussians of its pixel), none beyond BWD_FLIP_TOL. Returns
+    the largest scaled error."""
+    worst = 0.0
+    for name in ref:
+        r, g = ref[name], got[name]
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{what}: non-finite gradient of {name}")
+        scale = max(float(r.abs().max()), 1e-30)
+        d = ((g - r).abs() / scale).reshape(r.shape[0], -1).amax(dim=1)
+        off, err = int((d > ORACLE_GRAD_ATOL).sum()), float(d.max())
+        worst = max(worst, err)
+        log(f"[oracle] {what} d/d{name}: max scaled err {err:.3e}; rows beyond {ORACLE_GRAD_ATOL}: {off} of "
+            f"{r.shape[0]}")
+        if off > max(1, BWD_FLIP_LANES * r.shape[0]) or err > BWD_FLIP_TOL:
+            raise AssertionError(f"{what} d/d{name}: the tile path's gradient disagrees with the oracle's")
+    return worst
+
+
+def oracle_phase(dev, H: int = ORACLE_HW[0], W: int = ORACLE_HW[1], n: int = ORACLE_N) -> dict:
+    """13a: rasterize (kernels 2.1 and 2.3) against the per-pixel oracle
+    (ops.rasterize.render_reference) on a random and a high-opacity scene
+    of n Gaussians at H x W; the gradients of test_gradient_parity's loss
+    (kernels 2.2 and 2.4) against the oracle's autograd; render_gaussians
+    with colors_precomp and with shs through kernel 2.1, against the
+    oracle. Returns the kernels' launches, the errors and seconds."""
+    from street_gaussians_torch.models.simple_renderer import render_gaussians
+    from street_gaussians_torch.ops.rasterize import RasterizeConfig, rasterize, render_reference
+
+    t0 = time.perf_counter()
+    cfg = RasterizeConfig(tile_capacity=2**20, instance_capacity=2**20)  # uncapped: nothing dropped
+    _zero_counts()
+    res = {"errors": {}}
+    for name, seed, op_max, tol in (("random", 0, 0.9, ORACLE_TOL), ("opaque", 1, 0.999, ORACLE_TOL_OPAQUE)):
+        cam, *g = oracle_case(seed, n, H, W, dev, opacity_max=op_max)
+        bg = torch.tensor([0.1, 0.2, 0.3], device=dev) if name == "random" else torch.zeros(3, device=dev)
+        with torch.no_grad():
+            screen = oracle_screen(cam, *g)
+            out = rasterize(screen, H, W, bg, config=cfg)
+            ref = render_reference(screen, H, W, bg)
+        if int(out["overflow"]) != 0:
+            raise AssertionError(f"oracle {name}: {int(out['overflow'])} instances dropped")
+        res["errors"][f"forward_{name}"] = compare_oracle(out, ref, tol, f"{name} scene ({n} Gaussians, {H}x{W})")
+
+    # gradients of test_gradient_parity's loss (every output head)
+    cam, *g = oracle_case(4, n, H, W, dev)
+    bg = torch.full((3,), 0.5, device=dev)
+    target = torch.as_tensor(np.random.default_rng(5).uniform(size=(H, W, 3)).astype(np.float32), device=dev)
+    names = ("means", "scales", "quats", "opacity", "shs")
+    values, grads = {}, {}
+    for path, render in (("oracle", lambda s: render_reference(s, H, W, bg)),
+                         ("tile", lambda s: rasterize(s, H, W, bg, config=cfg))):
+        leaves = [x.clone().requires_grad_(True) for x in g]
+        o = render(oracle_screen(cam, *leaves))
+        loss = ((o["rgb"] - target) ** 2).mean() + 0.1 * o["depth"].mean() + 0.05 * o["acc"].mean()
+        gs = torch.autograd.grad(loss, leaves)
+        values[path], grads[path] = float(loss.detach()), dict(zip(names, gs))
+    rel = abs(values["tile"] - values["oracle"]) / abs(values["oracle"])
+    log(f"[oracle] gradient case: loss {values['tile']:.7f} against the oracle's {values['oracle']:.7f} "
+        f"(rel {rel:.2e})")
+    if rel > 1e-5:
+        raise AssertionError(f"oracle gradient case: loss rel error {rel}")
+    res["errors"]["gradients_scaled"] = compare_oracle_grads(grads["tile"], grads["oracle"], "gradient case")
+
+    # the single-cloud renderer, both colour sources
+    cam, means, scales, quats, opacity, shs = oracle_case(3, n, H, W, dev)
+    colors = torch.as_tensor(np.random.default_rng(6).uniform(size=(n, 3)).astype(np.float32), device=dev)
+    bg = torch.tensor([0.0, 1.0, 0.0], device=dev)
+    for what, kw in (("shs", {"shs": shs, "sh_degree": 2}), ("colors_precomp", {"colors_precomp": colors})):
+        before = _launch_counts()["tile_blend_instances"]
+        with torch.no_grad():
+            out = render_gaussians(cam, means, scales, quats, opacity, bg_color=bg, config=cfg, **kw)
+            screen = oracle_screen(cam, means, scales, quats, opacity, kw.get("shs"),
+                                   colors_precomp=kw.get("colors_precomp"))
+            ref = render_reference(screen, H, W, bg)
+        if _launch_counts()["tile_blend_instances"] != before + 1:
+            raise AssertionError(f"render_gaussians ({what}) did not launch kernel 2.1 once")
+        if not bool(out["visibility"].any()) or tuple(out["radii"].shape) != (n,):
+            raise AssertionError(f"render_gaussians ({what}): radii {tuple(out['radii'].shape)}, none visible")
+        res["errors"][f"render_gaussians_{what}"] = compare_oracle(out, ref, ORACLE_TOL, f"render_gaussians {what}")
+    torch.cuda.synchronize()
+    res["launches"] = _launch_counts()
+    if any(v == 0 for v in res["launches"].values()):
+        raise AssertionError(f"oracle checks: a main-path kernel was not launched: {res['launches']}")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[oracle] step 13a in {res['seconds']:.1f} s: launches {res['launches']}, errors {res['errors']}")
+    return res
+
+
+def demo_phase(dev, tmp: str, smi: str) -> dict:
+    """13b-d: the demo scene (script.make_demo_scene, DEMO_FRAMES frames
+    of camera 0 at its default 480x320, 20,000 LiDAR points) trained by
+    `train --config configs/demo_synthetic.yaml` for its own DEMO_ITERS
+    iterations in-process, then `render` and `metrics`; `make_ply` on
+    its checkpoint; the repo's root script/summarize_train_log.py on its
+    log, as a subprocess. Gates: every logged record finite; no instance
+    dropped, or each growth by the watchdog's rule and none dropped after
+    the last; the four main-path kernels launched in training; the
+    log_images grids at 1,000 and 2,000; train_psnr at DEMO_ITERS at
+    least DEMO_MIN_PSNR and DEMO_MIN_GAIN above its value at 500; the
+    PLY's vertices the rows visible at viewer.frame_id. Returns the
+    launches in training and in render_sets, and the numbers printed."""
+    from street_gaussians_torch import make_ply as make_ply_cli
+    from street_gaussians_torch import metrics as metrics_cli
+    from street_gaussians_torch import render as render_cli
+    from street_gaussians_torch import runner
+    from street_gaussians_torch import train as train_cli
+    from street_gaussians_torch.config import load_config
+    from street_gaussians_torch.models.renderer import compose_frame
+    from street_gaussians_torch.script.make_demo_scene import make_demo_scene
+    from street_gaussians_torch.utils import ply
+    from street_gaussians_torch.utils.image_io import imread
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    recipe = os.path.join(here, "configs", "demo_synthetic.yaml")
+    scene_dir, out = os.path.join(tmp, "demo_scene"), os.path.join(tmp, "demo_out")
+    argv = ["--config", recipe, "--device", dev.type, "source_path", scene_dir, "model_path", out]
+    res = {"card": smi}
+
+    # ---- 13b. the scene, training, render, metrics ----
+    t0 = time.perf_counter()
+    np.random.seed(0)  # the actor's grid colours
+    make_demo_scene(scene_dir, frames=DEMO_FRAMES, cameras=(0,), device=dev)
+    torch.cuda.synchronize()
+    res["scene_s"] = time.perf_counter() - t0
+    _zero_counts()
+    np.random.seed(0)
+    t0 = time.perf_counter()
+    final = train_cli.main(argv)
+    torch.cuda.synchronize()
+    res["train_wall_s"] = time.perf_counter() - t0
+    res["train_launches"] = _launch_counts()
+    if any(v == 0 for v in res["train_launches"].values()):
+        raise AssertionError(f"demo: a main-path kernel was not launched in training: {res['train_launches']}")
+    with open(os.path.join(out, "record", "train_log.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    bad = [r for r in recs if not all(math.isfinite(v) for v in r.values() if isinstance(v, (int, float)))]
+    if bad or any(r.get("event") for r in recs):
+        raise AssertionError(f"demo: non-finite or event records {bad[:3]} {[r for r in recs if r.get('event')]}")
+    steps = [r for r in recs if "loss" in r]
+    if [r["iteration"] for r in steps] != list(range(10, DEMO_ITERS + 1, 10)):
+        raise AssertionError(f"demo: step records at {[r['iteration'] for r in steps][:5]}...")
+    last = 0
+    for ev in final["growth"]:
+        if ev["to"] != 2 * ev["from"] and ev["to"] != 0:
+            raise AssertionError(f"demo: growth {ev} not by the watchdog's rule")
+        last = ev["iteration"]
+    dropped = [r["iteration"] for r in steps if r["iteration"] > last and r["overflow"] != 0]
+    if dropped:
+        raise AssertionError(f"demo: instances dropped at iterations {dropped[:10]} (growth {final['growth']})")
+    psnr = {r["iteration"]: r["train_psnr"] for r in recs if "train_psnr" in r}
+    if sorted(psnr) != [500, 1000, DEMO_ITERS]:
+        raise AssertionError(f"demo: evals at {sorted(psnr)}")
+    for it in (1000, 2000):
+        grid = imread(os.path.join(out, "log_images", f"{it}.png"))
+        if grid.shape != (2 * 320, 3 * 480, 3):
+            raise AssertionError(f"demo: log_images/{it}.png is {grid.shape}")
+    res["psnr"] = [psnr[500], psnr[1000], psnr[DEMO_ITERS]]
+    res["dens"] = [r for r in recs if "densify/points_total" in r][-1:]
+    timing = final["timing"]
+    steps_s = timing["total_s"] - timing["load_s"] - timing["eval_s"] - timing["save_s"] - timing["log_images_s"]
+    res.update(it_per_s=DEMO_ITERS / steps_s, num_alive=final["num_alive"], growth=final["growth"],
+               timing={k: v for k, v in timing.items() if k != "windows"},
+               ms_per_step_median=float(np.median([w["ms_per_step"] for w in timing["windows"]])))
+    t0 = time.perf_counter()
+    _zero_counts()
+    rendered = render_cli.main(argv)
+    torch.cuda.synchronize()
+    res["render_launches"] = _launch_counts()
+    res["render_s"] = time.perf_counter() - t0
+    res["render_ms"] = rendered.get("render_ms")
+    t0 = time.perf_counter()
+    scores = metrics_cli.main(argv)
+    res["metrics_s"] = time.perf_counter() - t0
+    res["metrics"] = {k: {m: v[m] for m in ("psnr", "ssim")} for k, v in scores.items()}
+    if not all(math.isfinite(v) for r in res["metrics"].values() for v in r.values()):
+        raise AssertionError(f"demo: metrics {res['metrics']}")
+    log(f"[demo] train_psnr at 500 / 1000 / {DEMO_ITERS}: {res['psnr'][0]:.4f} / {res['psnr'][1]:.4f} / "
+        f"{res['psnr'][2]:.4f} (the JAX package's records: exact-f32 CPU {JAX_DEMO_PSNR['jax_cpu_exact']}, TPU "
+        f"{JAX_DEMO_PSNR['jax_tpu']}); {res['it_per_s']:.2f} it/s over the steps (median window "
+        f"{res['ms_per_step_median']:.2f} ms/step), train wall {res['train_wall_s']:.1f} s, scene "
+        f"{res['scene_s']:.1f} s, stages {json.dumps(res['timing'])}; {res['num_alive']} alive after densify "
+        f"(last round {json.dumps(res['dens'])}); growth {res['growth']}; render {res['render_ms']} ms/view "
+        f"({res['render_s']:.1f} s), metrics {json.dumps(res['metrics'])} ({res['metrics_s']:.1f} s); "
+        f"launches in training {res['train_launches']}, in render_sets {res['render_launches']} ({smi})")
+    if not (res["psnr"][2] >= DEMO_MIN_PSNR and res["psnr"][2] >= res["psnr"][0] + DEMO_MIN_GAIN):
+        raise AssertionError(f"demo: train_psnr {res['psnr']} at 500 / 1000 / {DEMO_ITERS}: below "
+                             f"{DEMO_MIN_PSNR} or less than {DEMO_MIN_GAIN} above 500's")
+
+    # ---- 13c. make_ply on the demo checkpoint ----
+    t0 = time.perf_counter()
+    path = make_ply_cli.main(argv)
+    vertex = ply.read_ply(path)["vertex"]
+    cfg = load_config(recipe, argv[4:], "train")
+    np.random.seed(0)
+    scene = runner.build_trained_scene(cfg, dev)
+    state = runner.load_trained_state(cfg, scene, dev)
+    frame_id = cfg.viewer.get("frame_id", 0)
+    view = next(v for v in sorted(scene.all_views, key=lambda v: v.frame_idx) if v.frame_idx == frame_id)
+    with torch.no_grad():
+        composed = compose_frame(state.params, state.aux, scene.table, scene.pose_data, view.frame_input,
+                                 runner.EVAL_STEP, opts=runner.render_opts_from_cfg(cfg, "eval"))
+    visible = composed["visible"]
+    xyz = np.stack([vertex["x"], vertex["y"], vertex["z"]], axis=-1)
+    if len(vertex) != int(visible.sum()) or not np.array_equal(xyz, composed["means3d"][visible].cpu().numpy()):
+        raise AssertionError(f"make_ply: {len(vertex)} vertices for {int(visible.sum())} visible rows")
+    res["ply_vertices"], res["make_ply_s"] = len(vertex), time.perf_counter() - t0
+    log(f"[demo] make_ply: {len(vertex)} vertices = the rows visible at frame {frame_id}, read back "
+        f"({res['make_ply_s']:.1f} s)")
+
+    # ---- 13d. the root summarize_train_log.py on the port's log ----
+    proc = subprocess.run([sys.executable, os.path.join(here, "script", "summarize_train_log.py"),
+                           os.path.join(out, "record", "train_log.jsonl")], capture_output=True, text=True,
+                          timeout=120)
+    if proc.returncode != 0:
+        raise AssertionError(f"summarize_train_log failed ({proc.returncode}):\n{proc.stderr[-2000:]}")
+    for ln in proc.stdout.splitlines()[:4]:
+        log(f"[demo] summarize_train_log: {ln}")
+    return res
+
+
+def step13_phase(dev, tmp: str, smi: str) -> dict:
+    """Step 13 (see oracle_phase and demo_phase). Returns the kernels'
+    launches (13a's checks, 13b's training and render_sets), the oracle's
+    errors and the numbers printed."""
+    t0 = time.perf_counter()
+    a = oracle_phase(dev)
+    torch.cuda.empty_cache()
+    b = demo_phase(dev, tmp, smi)
+    numbers = {"oracle": {k: v for k, v in a.items() if k != "launches"},
+               "demo": {k: v for k, v in b.items() if not k.endswith("launches")},
+               "seconds": time.perf_counter() - t0}
+    log(f"[demo] step 13 in {numbers['seconds']:.1f} s ({smi})")
+    return {"launches": {"oracle": a["launches"], "demo_train": b["train_launches"],
+                         "demo_render": b["render_launches"]},
+            "oracle_errors": a["errors"], "numbers": numbers}
 
 
 if __name__ == "__main__":

@@ -221,3 +221,31 @@ def rasterize(
     if extra_features is not None:
         result["extra"] = accum[..., 4:]
     return result
+
+
+def render_reference(
+    screen: GaussianScreenData,
+    H: int,
+    W: int,
+    bg_color: torch.Tensor,
+    extra_features: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """Same contract as `rasterize` (rgb, depth, acc, T and, with
+    extra_features, extra), through the slow exact per-pixel oracle
+    (ops/reference_rasterizer.py); no binning, so no counters."""
+    from street_gaussians_torch.ops.reference_rasterizer import reference_render
+
+    feats = [screen.rgb, screen.depth[:, None]]
+    if extra_features is not None:
+        feats.append(extra_features)
+    out = reference_render(screen, torch.cat(feats, dim=-1), H, W)
+    accum, T = out.features, out.transmittance
+    result = {
+        "rgb": accum[..., 0:3] + T[..., None] * bg_color[None, None, :],
+        "depth": accum[..., 3],
+        "acc": 1.0 - T,
+        "T": T,
+    }
+    if extra_features is not None:
+        result["extra"] = accum[..., 4:]
+    return result

@@ -30,9 +30,14 @@ final checksum, and sharded again after densify and the reset.
 render.parallel "tile=N", in row blocks with "gauss=N" and in both with
 "gausstile=GxT" (in turn in one process).
 
-Not ported (each raises NotImplementedError where a config asks for it):
-the viewer bridge (ROADMAP queue 1 item 7). The every-1000-iteration
-`log_images` grid is left out (item 7).
+Every 1,000 iterations `training` writes the debug grid of
+`log_image_grid` (gt | render | depth colour over acc | object render |
+object acc) to model_path/log_images/<iteration>.png; the JAX package
+writes the same grid as <iteration>.jpg through cv2, so the two differ in
+file format only.
+
+Not ported (raises NotImplementedError where a config asks for it): the
+viewer bridge (ROADMAP.md queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -75,7 +80,7 @@ from street_gaussians_torch.train_lib import (
 from street_gaussians_torch.utils import losses as L
 from street_gaussians_torch.utils.image_io import imread, imwrite
 from street_gaussians_torch.utils.lpips import lpips as lpips_fn
-from street_gaussians_torch.visualize import Visualizer, visualize_depth
+from street_gaussians_torch.visualize import Visualizer, save_image, visualize_depth
 
 EVAL_STEP = 10**9  # SH degree fully active
 
@@ -312,7 +317,7 @@ class _Plan:
     def __init__(self, cfg: Config, group=None):
         t = cfg.train
         if cfg.get("viewer", {}).get("enabled"):
-            _not_ported("viewer.enabled (the SIBR viewer bridge)", 7)
+            _not_ported("viewer.enabled (the SIBR viewer bridge)", 5)
         B = int(t.get("batch_size", 1) or 1)
         D = int(t.get("tile_shards", 0) or 0)
         Gs = int(t.get("gauss_shards", 0) or 0)
@@ -554,7 +559,8 @@ def training(cfg: Config, progress: bool = True, device=None, group=None) -> Dic
 
         state = broadcast_state(state, plan.group)
     sync()
-    timing = {"load_s": time.perf_counter() - t_begin, "resume_s": 0.0, "eval_s": 0.0, "save_s": 0.0}
+    timing = {"load_s": time.perf_counter() - t_begin, "resume_s": 0.0, "eval_s": 0.0, "save_s": 0.0,
+              "log_images_s": 0.0}
 
     def build_train_step():
         return plan.make_step(cfg, scene)
@@ -570,6 +576,9 @@ def training(cfg: Config, progress: bool = True, device=None, group=None) -> Dic
         densify_fn = functools.partial(whole_state, densify_fn, shards)
         reset_fn = functools.partial(whole_state, reset_fn, shards)
     eval_render = make_eval_render(cfg, scene)
+    make_obj_render = lambda: (make_eval_render(cfg, scene, render_object_mask(scene.table))  # noqa: E731
+                               if scene.table.num_models > 1 else None)
+    eval_obj_render = make_obj_render()
 
     start_iter = 0
     if cfg.resume:
@@ -650,6 +659,7 @@ def training(cfg: Config, progress: bool = True, device=None, group=None) -> Dic
                                    values.get("overflow_tile", 0.0), log_f):
                     step_fn = build_train_step()
                     eval_render = make_eval_render(cfg, scene)
+                    eval_obj_render = make_obj_render()
                     marks.add("growth")
             if progress and is_writer and iteration % 100 == 0:
                 dt = time.time() - t_start
@@ -663,6 +673,23 @@ def training(cfg: Config, progress: bool = True, device=None, group=None) -> Dic
                 if tb is not None:
                     for k, v in values.items():
                         tb.add_scalar(f"train/{k}", v, iteration)
+
+            if iteration % 1000 == 0:
+                # the debug grid: the gather is a collective over the
+                # gauss group and every rank renders (runner.py:971-1003);
+                # the writer alone saves it
+                t0 = time.perf_counter()
+                state_full = shards.gather(state)
+                r = eval_render(state_full.params, state_full.aux, view.frame_input)
+                ro = (eval_obj_render(state_full.params, state_full.aux, view.frame_input)
+                      if eval_obj_render is not None else None)
+                if is_writer:
+                    os.makedirs(os.path.join(cfg.model_path, "log_images"), exist_ok=True)
+                    save_image(os.path.join(cfg.model_path, "log_images", f"{iteration}.png"),
+                               log_image_grid(gt.image, r, ro))
+                r = ro = state_full = None
+                timing["log_images_s"] += time.perf_counter() - t0
+                marks.add("log_images")
 
             saves = iteration in cfg.train.save_iterations or iteration in cfg.train.checkpoint_iterations
             if iteration in cfg.train.test_iterations or saves:
@@ -704,6 +731,26 @@ def training(cfg: Config, progress: bool = True, device=None, group=None) -> Dic
     final.update(timing=timing, growth=watchdog.events, gt_cache_bytes=gt_cache.nbytes,
                  gt_cache_views=len(gt_cache.cache), start_iteration=start_iter, iterations=iters)
     return final
+
+
+def log_image_grid(gt_image, render: Dict, obj_render: Optional[Dict] = None) -> np.ndarray:
+    """The training log's debug grid (ref: train.py:146-163; the JAX
+    runner's log_images): row 0 gt | render | depth colour, row 1 acc |
+    object render | object acc (zeros without actors), [2H, 3W, 3]
+    float in [0, 1]."""
+    host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    rgb = host(render["rgb"])
+    depth_c, _ = visualize_depth(host(render["depth"]))
+    acc = host(render["acc"])[..., None].repeat(3, -1)
+    if obj_render is not None:
+        obj_rgb = host(obj_render["rgb"])
+        obj_acc = host(obj_render["acc"])[..., None].repeat(3, -1)
+    else:
+        obj_rgb = np.zeros_like(rgb)
+        obj_acc = np.zeros_like(rgb)
+    row0 = np.concatenate([host(gt_image), rgb, depth_c / 255.0], axis=1)
+    row1 = np.concatenate([acc, obj_rgb, obj_acc], axis=1)
+    return np.clip(np.concatenate([row0, row1], axis=0), 0, 1)
 
 
 def evaluate_psnr(cfg: Config, scene: Scene, state: TrainState, eval_render, max_views=None,

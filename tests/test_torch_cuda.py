@@ -19,6 +19,7 @@ from chip_smoke import (
     compare_blend_bwd,
     live_lanes,
     long_blend_case,
+    oracle_phase,
     random_blend_case,
     random_expand_case,
     random_table_case,
@@ -512,3 +513,13 @@ def test_gauss_sharded_render_matches_the_whole_frame(cuda_device, G, T):
         for k in ("rgb", "depth", "acc", "T"):
             assert torch.equal(got[k], whole[k]), k
     compare_frames(got, whole, f"{G} row blocks x {T} bands")
+
+
+@pytest.mark.cuda
+def test_tile_path_matches_the_oracle(cuda_device):
+    """rasterize (kernels 2.1, 2.3) and its gradients (2.2, 2.4) against
+    the per-pixel oracle, and render_gaussians with both colour sources,
+    at 300 Gaussians on 48x64 (chip_smoke.oracle_phase raises on any
+    disagreement)."""
+    res = oracle_phase(cuda_device, H=48, W=64, n=300)
+    assert res["launches"]["tile_blend_instances"] == 5 and res["launches"]["tile_blend_bwd"] == 1

@@ -237,7 +237,9 @@ def test_port_imports_no_jax_and_no_top_level_cv2_or_yaml():
     (the card's machine is not known to have it: image_io imports it
     inside the functions that read non-PNG images; visualize.py inside
     write_video). The modules of the config, checkpoint, runner and CLI
-    slice, visualize.py and utils/lpips.py are among those checked."""
+    slice, visualize.py, utils/lpips.py, make_ply.py, the oracle, the
+    single-cloud renderer, utils/semantics.py and the demo-scene scripts
+    are among those checked."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "street_gaussians_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -252,6 +254,7 @@ def test_port_imports_no_jax_and_no_top_level_cv2_or_yaml():
     names = {os.path.relpath(p, REPO) for p in files}
     slice_modules = {f"street_gaussians_torch/{m}.py" for m in (
         "config", "checkpoint", "runner", "train", "render", "metrics", "utils/yaml_subset", "visualize",
-        "utils/lpips")}
+        "utils/lpips", "make_ply", "utils/semantics", "ops/reference_rasterizer", "models/simple_renderer",
+        "script/make_demo_scene", "script/run_eval_heldout")}
     assert slice_modules <= names, slice_modules - names
     assert len(files) > 40 and not bad, bad
