@@ -40,8 +40,16 @@
    their search-only probe build (`[probe]` lines);
 7. the dense-table layout and the blend probe: holds the table blend's
    forward and backward kernels and the probe's floor and tensor-core
-   variants against their plain versions on a random case and on the
-   bench frame's own inputs; runs the table-against-instance parity
+   variants against their plain versions on a random case, on tables
+   with long tiles (K = 4,096, about 5% of the tiles at full count, at
+   low and high opacity: the table kernels' work list cuts them into
+   segments) and on the bench frame's own inputs; on the long-tile
+   tables and the bench table the table kernels repeat bit for bit (the
+   backward with the forward's state and without it too) and the
+   backward leaves exact zeros wherever no walk reaches, over memory
+   filled with NaN first; logs the work list's items, segments and long
+   tiles and the backward's time beside a zero fill of the gradient
+   table alone; runs the table-against-instance parity
    check (script.parity_check) on the bench frame and at its own
    880x1280 size, forward and gradients, which must agree, drop no
    instance and go through the table kernels and the segmented row-sum;
@@ -494,6 +502,59 @@ def random_table_case(seed: int, dev, grid_x=40, grid_y=30, F=4, K=768, counts=N
     return t(table), t(counts), F, grid_x
 
 
+# the long-tile table case: K = 4,096 (32 chunks, two segments of the
+# kernels' SEG_CHUNKS = 16), about 5% of the tiles at full count, the
+# others as random_table_case's up to 768; at low opacity pixels cross
+# the segment boundary, at high opacity they stop early
+LONG_TABLE_K = 4096
+LONG_TABLE_OPACITIES = (0.05, 0.99)
+
+
+def long_table_case(seed: int, dev, opacity_hi: float, F: int = 4, grid_x: int = 40, grid_y: int = 30):
+    """random_table_case at K = LONG_TABLE_K with long tiles."""
+    rng = np.random.default_rng(seed)
+    T = grid_x * grid_y
+    counts = rng.integers(0, 769, T)
+    counts[rng.uniform(size=T) < 0.2] = 0
+    counts[rng.uniform(size=T) < 0.05] = LONG_TABLE_K
+    return random_table_case(seed, dev, grid_x=grid_x, grid_y=grid_y, F=F, K=LONG_TABLE_K, counts=counts,
+                             opacity_hi=opacity_hi)
+
+
+def check_table_repeat_and_zeros(payload, tile_count, out, gout, F: int, gx: int, what: str):
+    """The table kernels on one case: the forward and the backward (with
+    the forward's state and without) bit-equal on a repeat, and every
+    element of d_payload that no walk reaches (the rows past 8 + F, the
+    slots past a tile's chunks) exactly 0, with d_payload allocated over
+    memory just filled with NaN (the kernel writes every element; the
+    wrapper takes torch.empty). Returns the gradient."""
+    from street_gaussians_torch.ops import tile_raster
+
+    again, state = tile_raster._forward(payload, tile_count, F, gx)
+    if not torch.equal(again, out):
+        raise AssertionError(f"{what}: forward not bit-equal on a repeat")
+    del again
+    junk = torch.full_like(payload, float("nan"))
+    del junk
+    got = tile_raster.tile_blend_bwd(payload, tile_count, out, gout, F, gx, state=state)
+    K = payload.shape[2]
+    reach = torch.clamp((tile_count.long() + 127) // 128, max=K // 128) * 128
+    beyond = torch.arange(K, device=payload.device)[None, :] >= reach[:, None]
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: the backward left elements unwritten (NaN) or non-finite")
+    if (got[:, 6 + F + 2:] != 0).any() or (got.transpose(1, 2)[beyond] != 0).any():
+        raise AssertionError(f"{what}: the backward wrote a non-zero where no walk reaches")
+    if not torch.equal(tile_raster.tile_blend_bwd(payload, tile_count, out, gout, F, gx), got):
+        raise AssertionError(f"{what}: backward without the forward's state not bit-equal to with it")
+    plan = tile_raster.table_plan(tile_count, K, tile_raster.SEG_CHUNKS)
+    unreached = int(beyond.sum()) * payload.shape[1] + int((~beyond).sum()) * (payload.shape[1] - 8 - F)
+    log(f"[check] {what}: forward and backward repeat bit for bit, the backward with the forward's state and "
+        f"without it too; {unreached} elements no walk reaches exactly 0; work list {plan['n_items']} items, "
+        f"{plan['n_long']} of them segments of {int((plan['tile_slot'] >= 0).sum())} long tiles "
+        f"(SEG_CHUNKS={tile_raster.SEG_CHUNKS})")
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -791,6 +852,18 @@ def table_phase(dev, screen, H, W, b_args, b_ref, b_plain, b_bound) -> list:
         tile_raster.tile_blend_bwd(payload, counts, out, gout, F, gx),
         tile_raster.tile_blend_bwd_plain(payload, counts, out, gout, F, gx),
         live, F, f"table blend backward random ({T} tiles, K={K})")
+    for opacity_hi in LONG_TABLE_OPACITIES:
+        case = long_table_case(3, dev, opacity_hi)
+        payload, counts, F, gx = case
+        T, K = payload.shape[0], payload.shape[2]
+        what = f"table blend long tiles ({T} tiles, K={K}, opacity up to {opacity_hi})"
+        out = tile_raster.tile_blend(*case)
+        err_tf = max(err_tf, compare_blend(out, tile_raster.tile_blend_plain(*case), F, what))
+        gout = torch.randn((T, 256, F + 1), generator=gen).to(dev)
+        live = (torch.arange(K, device=dev)[None, :] < counts[:, None]).reshape(-1)
+        err_tb = max(err_tb, compare_blend_bwd(
+            check_table_repeat_and_zeros(payload, counts, out, gout, F, gx, what),
+            tile_raster.tile_blend_bwd_plain(payload, counts, out, gout, F, gx), live, F, f"{what}, backward"))
     rcase = random_blend_case(1, dev)
     err_floor = compare_floor(
         probe_kernel.probe_floor(*rcase), probe_kernel.probe_floor_plain(*rcase),
@@ -819,14 +892,20 @@ def table_phase(dev, screen, H, W, b_args, b_ref, b_plain, b_bound) -> list:
         bwd_args = (bi.payload, bi.bins.tile_count, t_out, gout, F, gx)
         live = (torch.arange(K, device=dev)[None, :] < bi.bins.tile_count[:, None]).reshape(-1)
         err_tb = max(err_tb, compare_blend_bwd(
-            tile_raster.tile_blend_bwd(*bwd_args), tile_raster.tile_blend_bwd_plain(*bwd_args),
-            live, F, f"table blend backward bench frame ({T} tiles, K={K})"))
+            check_table_repeat_and_zeros(*bwd_args, f"table blend bench frame ({T} tiles, K={K})"),
+            tile_raster.tile_blend_bwd_plain(*bwd_args), live, F, f"table blend backward bench frame ({T} tiles, K={K})"))
         n_live, evaluated, blended = int(live.sum()), int(work["evaluated"]), int(work["blended"])
         log(f"[check] bench table: largest tile {max_count}, K={K}, {n_live} live slots, "
             f"{int(work['chunks'])} chunks read, {evaluated} pixel-slot pairs evaluated, {blended} blended")
         tf_ms = cuda_ms(lambda: tile_raster.tile_blend(*t_args), 20)
         tf_plain = cuda_ms(lambda: tile_raster.tile_blend_plain(*t_args), 1)
-        tb_ms = cuda_ms(lambda: tile_raster.tile_blend_bwd(*bwd_args), 10)
+        _, t_state = tile_raster._forward(*t_args)
+        tb_ms = cuda_ms(lambda: tile_raster.tile_blend_bwd(*bwd_args, state=t_state), 10)
+        tb_no_state = cuda_ms(lambda: tile_raster.tile_blend_bwd(*bwd_args), 10)
+        zero_ms = cuda_ms(lambda: torch.zeros_like(bi.payload), 10)
+        log(f"[table] bench frame ({T} tiles, K={K}): forward {tf_ms:.4f} ms, backward {tb_ms:.4f} ms with the "
+            f"forward's state, {tb_no_state:.4f} without; a zero fill of the gradient table alone {zero_ms:.4f} ms")
+        del t_state
         tb_plain = cuda_ms(lambda: tile_raster.tile_blend_bwd_plain(*bwd_args), 1)
         # f32 operations (exp counted as one): 17 for every pair a pixel
         # evaluates, as the instance blend; 6 + 2F more for a pair it
@@ -888,6 +967,7 @@ def table_phase(dev, screen, H, W, b_args, b_ref, b_plain, b_bound) -> list:
 
     parity = {"path": "the table parity check", "parity_fwd_ms": res["fwd_ms"],
               "parity_fwd_bwd_ms": res["fwd_bwd_ms"], "tile_capacity": res["tile_capacity"]}
+    parity_bwd = {**parity, "no_state_ms": tb_no_state, "zero_fill_ms": zero_ms}
     in_probe = {"path": "the probe", "probe_ms": probe}
     return [
         ("tile_blend_table", "street_gaussians_torch/csrc/tile_blend_table.cu",
@@ -895,7 +975,7 @@ def table_phase(dev, screen, H, W, b_args, b_ref, b_plain, b_bound) -> list:
          tf_ms, tf_plain, None, tf_bound, parity),
         ("tile_blend_table_bwd", "street_gaussians_torch/csrc/tile_blend_table_bwd.cu",
          "street_gaussians_tpu/ops/tile_raster.py:214", launches["tile_blend_table_bwd"], err_tb,
-         tb_ms, tb_plain, None, tb_bound, parity),
+         tb_ms, tb_plain, None, tb_bound, parity_bwd),
         ("probe_floor", "street_gaussians_torch/csrc/probe_blend.cu",
          "script/probe_kernel.py:60", probe_launches["probe_floor"], err_floor,
          floor_ms, floor_plain, None, floor_bound, in_probe),

@@ -23,7 +23,7 @@ constexpr float ALPHA_MIN = (float)(1.0 / 255.0);
 constexpr float ALPHA_MAX = 0.99f;
 constexpr float LOG_T_EPS = (float)-9.210340371976182;  // log(1e-4)
 
-// The work list, built on the card by plan_kernel (tile_blend.cu). A
+// The work list, built on the card by build_plan (below). A
 // tile whose run touches more than seg_blocks payload blocks is long: it
 // is cut at every seg_blocks-th block of its run into segments, each a
 // work item with a slot of boundary state; every other tile is one item.
@@ -40,6 +40,96 @@ struct Plan {
       : n(plan), tile_slot(plan + 2), item_tile(plan + 2 + num_tiles),
         item_seg(plan + 2 + num_tiles + max_items) {}
 };
+
+// ---- the work list ----
+
+constexpr int PLAN_THREADS = 1024;
+
+// exclusive scan of (a, b) over the block's threads; the totals in
+// (ta, tb)
+__device__ inline void block_scan2(int& a, int& b, int& ta, int& tb, int (*warp_sums)[2]) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int ia = a, ib = b;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int ua = __shfl_up_sync(FULL, ia, off), ub = __shfl_up_sync(FULL, ib, off);
+    if (lane >= off) {
+      ia += ua;
+      ib += ub;
+    }
+  }
+  if (lane == 31) {
+    warp_sums[warp][0] = ia;
+    warp_sums[warp][1] = ib;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int wa = warp_sums[lane][0], wb = warp_sums[lane][1];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int ua = __shfl_up_sync(FULL, wa, off), ub = __shfl_up_sync(FULL, wb, off);
+      if (lane >= off) {
+        wa += ua;
+        wb += ub;
+      }
+    }
+    warp_sums[lane][0] = wa;  // inclusive
+    warp_sums[lane][1] = wb;
+  }
+  __syncthreads();
+  const int pa = warp ? warp_sums[warp - 1][0] : 0, pb = warp ? warp_sums[warp - 1][1] : 0;
+  ta = warp_sums[31][0];
+  tb = warp_sums[31][1];
+  a = pa + ia - a;
+  b = pb + ib - b;
+  __syncthreads();
+}
+
+// Fills the work list `plan` (the layout of Plan) in one block of
+// PLAN_THREADS threads from segs(t), tile t's number of segments (at
+// least 1). Items of long tiles (more than one segment) first, in tile
+// order, a tile's segments in a row; then the short tiles (an empty tile
+// too: its output is written like any other).
+template <class Segments>
+__device__ void build_plan(const Segments& segs, int num_tiles, int max_items, int* plan) {
+  __shared__ int warp_sums[32][2];
+  int* tile_slot = plan + 2;
+  int* item_tile = tile_slot + num_tiles;
+  int* item_seg = item_tile + max_items;
+
+  // items of long tiles in all: the short tiles' items start there
+  int mine = 0, none = 0, n_long, n_none;
+  for (int t = threadIdx.x; t < num_tiles; t += PLAN_THREADS) {
+    const int ns = segs(t);
+    if (ns > 1) mine += ns;
+  }
+  block_scan2(mine, none, n_long, n_none, warp_sums);
+
+  int long_base = 0, short_base = n_long;
+  for (int t0 = 0; t0 < num_tiles; t0 += PLAN_THREADS) {
+    const int t = t0 + threadIdx.x;
+    const int ns = t < num_tiles ? segs(t) : 0;
+    int a = ns > 1 ? ns : 0, b = ns == 1 ? 1 : 0, ta, tb;
+    block_scan2(a, b, ta, tb, warp_sums);
+    if (ns > 1) {
+      tile_slot[t] = long_base + a;
+      for (int k = 0; k < ns; ++k) {
+        item_tile[long_base + a + k] = t;
+        item_seg[long_base + a + k] = k;
+      }
+    } else if (ns == 1) {
+      tile_slot[t] = -1;
+      item_tile[short_base + b] = t;
+      item_seg[short_base + b] = 0;
+    }
+    long_base += ta;
+    short_base += tb;
+  }
+  if (threadIdx.x == 0) {
+    plan[0] = n_long;
+    plan[1] = short_base;
+  }
+}
 
 // payload blocks a run touches
 __host__ __device__ inline int run_blocks(int start, int count) {

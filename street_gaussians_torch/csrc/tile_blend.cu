@@ -59,7 +59,6 @@ namespace {
 
 using namespace sgblend;
 
-constexpr int PLAN_THREADS = 1024;
 // blocks of the blend an SM should hold (bounds its registers)
 #ifndef SG_FWD_MIN_BLOCKS
 #define SG_FWD_MIN_BLOCKS 4
@@ -67,96 +66,27 @@ constexpr int PLAN_THREADS = 1024;
 
 // ---- the work list ----
 
-// exclusive scan of (a, b) over the block's threads; the totals in
-// (ta, tb)
-__device__ inline void block_scan2(int& a, int& b, int& ta, int& tb, int (*warp_sums)[2]) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  int ia = a, ib = b;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int ua = __shfl_up_sync(FULL, ia, off), ub = __shfl_up_sync(FULL, ib, off);
-    if (lane >= off) {
-      ia += ua;
-      ib += ub;
-    }
-  }
-  if (lane == 31) {
-    warp_sums[warp][0] = ia;
-    warp_sums[warp][1] = ib;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    int wa = warp_sums[lane][0], wb = warp_sums[lane][1];
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int ua = __shfl_up_sync(FULL, wa, off), ub = __shfl_up_sync(FULL, wb, off);
-      if (lane >= off) {
-        wa += ua;
-        wb += ub;
-      }
-    }
-    warp_sums[lane][0] = wa;  // inclusive
-    warp_sums[lane][1] = wb;
-  }
-  __syncthreads();
-  const int pa = warp ? warp_sums[warp - 1][0] : 0, pb = warp ? warp_sums[warp - 1][1] : 0;
-  ta = warp_sums[31][0];
-  tb = warp_sums[31][1];
-  a = pa + ia - a;
-  b = pb + ib - b;
-  __syncthreads();
-}
-
 __device__ inline int tile_segments(const int* tile_start, const int* tile_count, int t,
                                     int seg_blocks) {
   const int nb = run_blocks(tile_start[t], tile_count[t]);
   return max(1, (nb + seg_blocks - 1) / seg_blocks);
 }
 
-// One block. Items of long tiles first, in tile order, a tile's segments
-// in a row; then the short tiles (an empty tile too: its output is
-// written like any other).
+// the work list of the runs' segments (build_plan, blend_common.cuh)
+struct RunSegments {
+  const int* tile_start;
+  const int* tile_count;
+  int seg_blocks;
+  __device__ int operator()(int t) const {
+    return tile_segments(tile_start, tile_count, t, seg_blocks);
+  }
+};
+
 __global__ void __launch_bounds__(PLAN_THREADS)
     plan_kernel(const int* __restrict__ tile_start, const int* __restrict__ tile_count,
                 int num_tiles, int seg_blocks, int max_items, int* __restrict__ plan) {
   BlockTimer timer(0);
-  __shared__ int warp_sums[32][2];
-  int* tile_slot = plan + 2;
-  int* item_tile = tile_slot + num_tiles;
-  int* item_seg = item_tile + max_items;
-
-  // items of long tiles in all: the short tiles' items start there
-  int mine = 0, none = 0, n_long, n_none;
-  for (int t = threadIdx.x; t < num_tiles; t += PLAN_THREADS) {
-    const int ns = tile_segments(tile_start, tile_count, t, seg_blocks);
-    if (ns > 1) mine += ns;
-  }
-  block_scan2(mine, none, n_long, n_none, warp_sums);
-
-  int long_base = 0, short_base = n_long;
-  for (int t0 = 0; t0 < num_tiles; t0 += PLAN_THREADS) {
-    const int t = t0 + threadIdx.x;
-    const int ns = t < num_tiles ? tile_segments(tile_start, tile_count, t, seg_blocks) : 0;
-    int a = ns > 1 ? ns : 0, b = ns == 1 ? 1 : 0, ta, tb;
-    block_scan2(a, b, ta, tb, warp_sums);
-    if (ns > 1) {
-      tile_slot[t] = long_base + a;
-      for (int k = 0; k < ns; ++k) {
-        item_tile[long_base + a + k] = t;
-        item_seg[long_base + a + k] = k;
-      }
-    } else if (ns == 1) {
-      tile_slot[t] = -1;
-      item_tile[short_base + b] = t;
-      item_seg[short_base + b] = 0;
-    }
-    long_base += ta;
-    short_base += tb;
-  }
-  if (threadIdx.x == 0) {
-    plan[0] = n_long;
-    plan[1] = short_base;
-  }
+  build_plan(RunSegments{tile_start, tile_count, seg_blocks}, num_tiles, max_items, plan);
 }
 
 // ---- the first pass ----

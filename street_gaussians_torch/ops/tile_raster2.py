@@ -263,16 +263,14 @@ def plan_bounds(num_payload_blocks: int, num_tiles: int, seg_blocks: int):
     return max_long, num_tiles + max_long
 
 
-def blend_plan_plain(tile_start: torch.Tensor, tile_count: torch.Tensor, seg_blocks: int) -> dict:
-    """Plain PyTorch version of the kernels' work list (plan_kernel in
-    csrc/tile_blend.cu): every tile's run cut at each seg_blocks-th
-    payload block it touches. Items of long tiles (more than one
-    segment) first, in tile order, a tile's segments in a row; then one
-    item per other tile. Returns n_long, n_items, tile_slot [num_tiles]
-    (a long tile's first item, else -1), item_tile and item_seg
-    [n_items]."""
-    dev = tile_start.device
-    nseg = ((run_blocks(tile_start, tile_count) + seg_blocks - 1) // seg_blocks).clamp(min=1)
+def plan_from_segments(nseg: torch.Tensor) -> dict:
+    """The work list build_plan (csrc/blend_common.cuh) makes from each
+    tile's number of segments (at least 1): items of long tiles (more
+    than one segment) first, in tile order, a tile's segments in a row;
+    then one item per other tile. Returns n_long, n_items, tile_slot
+    [num_tiles] (a long tile's first item, else -1), item_tile and
+    item_seg [n_items]."""
+    dev = nseg.device
     long_tiles = (nseg > 1).nonzero().squeeze(1)
     short_tiles = (nseg == 1).nonzero().squeeze(1)
     n = nseg[long_tiles]
@@ -287,6 +285,14 @@ def blend_plan_plain(tile_start: torch.Tensor, tile_count: torch.Tensor, seg_blo
         "item_tile": torch.cat([torch.repeat_interleave(long_tiles, n), short_tiles]).to(torch.int32),
         "item_seg": torch.cat([seg, torch.zeros_like(short_tiles)]).to(torch.int32),
     }
+
+
+def blend_plan_plain(tile_start: torch.Tensor, tile_count: torch.Tensor, seg_blocks: int) -> dict:
+    """Plain PyTorch version of the kernels' work list (plan_kernel in
+    csrc/tile_blend.cu): every tile's run cut at each seg_blocks-th
+    payload block it touches (plan_from_segments)."""
+    nseg = ((run_blocks(tile_start, tile_count) + seg_blocks - 1) // seg_blocks).clamp(min=1)
+    return plan_from_segments(nseg)
 
 
 def blend_plan(tile_start: torch.Tensor, tile_count: torch.Tensor, num_payload_blocks: int,

@@ -1,10 +1,12 @@
-"""Where the two blend kernels of the main path spend their time: the
+"""Where the blend kernels spend their time: the
 run lengths they are given, and each block's start and end on the card.
 
     python -m street_gaussians_torch.script.block_times [--iters 3]
         [--seg 512 1024 ...] [--variant='-DSG_BWD_LB=8' ...] [--features 27]
+    python -m street_gaussians_torch.script.block_times --table [--seg 512 2048 ...] [--variant=...] [--features 27]
 
-builds `csrc/tile_blend.cu` and `csrc/tile_blend_bwd.cu` a second time
+builds `csrc/tile_blend.cu` and `csrc/tile_blend_bwd.cu` (with --table,
+`csrc/tile_blend_table.cu` and `csrc/tile_blend_table_bwd.cu`) a second time
 with -DSG_BLOCK_TIMES (see `csrc/block_times.cuh`; the shipped libraries
 carry no timer), and on the bench frame (serve.bench_scene, frame 0) and
 on a bench train step's own backward inputs (train.bench_train_cell)
@@ -30,6 +32,14 @@ prints, one JSON line each:
            flags (a variant is one string of flags, '' the shipped
            build: the sources' tuning macros are SG_FWD_MIN_BLOCKS,
            SG_BWD_LB and SG_BWD_MIN_BLOCKS)
+  table    with --table, on the bench frame's dense table (chip_smoke.py
+           step 7b): the run lengths, the blocks of the table kernels'
+           launches, the work list's items, segments and long tiles, and
+           the forward and backward times at SEG_CHUNKS and at each --seg,
+           in each --variant build (the table sources' tuning macros:
+           SG_TABLE_MIN_BLOCKS, SG_TABLE_WIDE_MIN_BLOCKS, SG_TABLE_BWD_LB and
+           SG_TABLE_BWD_MIN_BLOCKS);
+           with --features F, on that table with F - 4 extra columns
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ import argparse
 import ctypes
 import json
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -46,7 +57,8 @@ from street_gaussians_torch import serve, train
 from street_gaussians_torch._device import resolve_device, time_ms
 from street_gaussians_torch.kernels import _build
 from street_gaussians_torch.models.renderer import screen_space
-from street_gaussians_torch.ops import rasterize, tile_raster2
+from street_gaussians_torch.ops import rasterize, tile_raster, tile_raster2
+from street_gaussians_torch.script.blend_times import bench_table_inputs
 
 PROBE_FLAGS = ("-DSG_BLOCK_TIMES",)
 REGION_STRIDE = 1 << 16  # block slots per kernel launch (csrc/block_times.cuh)
@@ -54,6 +66,8 @@ REGION_STRIDE = 1 << 16  # block slots per kernel launch (csrc/block_times.cuh)
 REGIONS = {
     "tile_blend": ("plan", "block log-sums (long tiles)", "blend", "combine (long tiles)"),
     "tile_blend_bwd": ("backward",),
+    "tile_blend_table": ("plan", "chunk products (long tiles)", "blend", "combine (long tiles)"),
+    "tile_blend_table_bwd": ("backward",),
 }
 
 
@@ -185,6 +199,47 @@ def bench_inputs(device, seed: int = 0):
     return fwd, tuple(t.detach() if torch.is_tensor(t) else t for t in bwd)
 
 
+def table_main(device, iters: int, seed: int, segs=(), features: int = 4, variants=()) -> None:
+    """--table: block times of kernels 2.5 and 2.6 on the bench table, the
+    forward's and the backward's times (the backward with the forward's
+    state and without), a zero fill of a gradient table for scale, and
+    with --seg and --variant the same times at other segment lengths
+    (lanes, cut to whole chunks) and in builds with other nvcc flags."""
+    fwd, bwd = bench_table_inputs(device, features, seed)
+    F, K = fwd[2], fwd[0].shape[2]
+    print(json.dumps({"runs": f"bench table, K={K}", **run_length_stats(fwd[1])}))
+    with torch.no_grad():
+        _, state = tile_raster._forward(*fwd)
+        for what, name, fn in (("table forward", "tile_blend_table", lambda: tile_raster.tile_blend(*fwd)),
+                               ("table backward", "tile_blend_table_bwd",
+                                lambda: tile_raster.tile_blend_bwd(*bwd, state=state))):
+            for row in block_times(name, fn, F, iters):
+                print(json.dumps({"what": what, **row}))
+        del state
+        payload = fwd[0]
+        print(json.dumps({"table": "zero fill", "K": K, "gradient_table_bytes": payload.numel() * 4,
+                          "zeros_like_ms": time_ms(lambda: torch.zeros_like(payload), 10, device)}))
+        saved = tile_raster.SEG_CHUNKS, tile_raster2.BUILD_FLAGS
+        try:
+            for flags in variants or [""]:
+                tile_raster2.BUILD_FLAGS = tuple(flags.split())
+                for seg in [saved[0] * tile_raster.CHUNK, *segs]:
+                    tile_raster.SEG_CHUNKS = max(1, seg // tile_raster.CHUNK)
+                    _, state = tile_raster._forward(*fwd)
+                    plan = tile_raster.table_plan(fwd[1], K, tile_raster.SEG_CHUNKS)
+                    print(json.dumps({
+                        "table": "times", "F": F, "K": K, "variant": flags, "seg_chunks": tile_raster.SEG_CHUNKS,
+                        "items": plan["n_items"], "segments": plan["n_long"],
+                        "long_tiles": int((plan["tile_slot"] >= 0).sum()),
+                        "fwd_ms": time_ms(lambda: tile_raster.tile_blend(*fwd), 10, device),
+                        "bwd_ms": time_ms(lambda: tile_raster.tile_blend_bwd(*bwd, state=state), 5, device),
+                        "bwd_no_state_ms": time_ms(lambda: tile_raster.tile_blend_bwd(*bwd), 5, device),
+                    }))
+                    del state
+        finally:
+            tile_raster.SEG_CHUNKS, tile_raster2.BUILD_FLAGS = saved
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=3)
@@ -194,8 +249,19 @@ def main(argv=None) -> None:
                     help="nvcc flags of a build to time, as --variant='-DSG_BWD_LB=8'; may repeat")
     ap.add_argument("--features", type=int, default=4,
                     help="blend features; above 4 the bench frame with random extra columns")
+    ap.add_argument("--table", action="store_true",
+                    help="kernels 2.5 and 2.6 on the bench frame's dense table instead")
     args = ap.parse_args(argv)
     device = resolve_device(None)
+    if args.table:
+        names = ("tile_blend_table", "tile_blend_table_bwd")
+        with ThreadPoolExecutor(1 + len(args.variant)) as pool:
+            for f in [pool.submit(_build.build, names, flags.split()) for flags in args.variant]:
+                f.result()
+            _build.build(names, PROBE_FLAGS)
+        table_main(device, args.iters, args.seed, args.seg, args.features, args.variant)
+        _print_device(device)
+        return
     for name, info in _build.build(REGIONS, PROBE_FLAGS).items():
         for ln in info["log"].splitlines():
             if "registers" in ln or ("Compiling" in ln and ("ILi4" in ln or "plan" in ln or "wide" in ln)):
@@ -222,6 +288,10 @@ def main(argv=None) -> None:
     if args.seg or args.variant:
         for row in sweep(fwd, bwd, args.seg, args.variant):
             print(json.dumps(row))
+    _print_device(device)
+
+
+def _print_device(device) -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(json.dumps({"device": torch.cuda.get_device_name(device), "name_and_power_limit": smi}))

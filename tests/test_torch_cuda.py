@@ -14,11 +14,14 @@ import torch
 
 from chip_smoke import (
     LONG_OPACITIES,
+    LONG_TABLE_OPACITIES,
     SEG_RTOL,
     compare_blend,
     compare_blend_bwd,
+    check_table_repeat_and_zeros,
     live_lanes,
     long_blend_case,
+    long_table_case,
     oracle_phase,
     random_blend_case,
     random_expand_case,
@@ -345,6 +348,73 @@ def test_table_autograd_function_takes_the_kernels(cuda_device):
     assert torch.equal(p.grad, tile_raster.tile_blend_bwd(payload, counts, out, gout, F, gx))
     with pytest.raises(ValueError, match="MAX_FEATURES"):  # past the kernels' cap
         tile_raster.tile_blend(payload, counts, tile_raster2.MAX_FEATURES + 1, gx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg_chunks", [1, 2, 8, 16, 1 << 20])
+def test_table_plan_kernel_matches_plain(cuda_device, seg_chunks):
+    """The table kernels' work list is integers: exact. A tile of more
+    than seg_chunks chunks is cut into segments of seg_chunks."""
+    payload, counts = long_table_case(0, cuda_device, LONG_TABLE_OPACITIES[0], grid_x=8, grid_y=6)[:2]
+    K = payload.shape[2]
+    got = tile_raster.table_plan(counts, K, seg_chunks)
+    want = tile_raster.table_plan_plain(counts.cpu(), K, seg_chunks)
+    assert (got["n_long"], got["n_items"]) == (want["n_long"], want["n_items"])
+    assert got["n_items"] <= tile_raster.max_items_bound(counts.numel(), K, seg_chunks)
+    assert (want["n_long"] > 0) == (seg_chunks < K // 128)
+    for k in ("tile_slot", "item_tile", "item_seg"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opacity_hi", LONG_TABLE_OPACITIES)
+def test_table_kernels_on_long_tiles(cuda_device, opacity_hi):
+    """Tiles cut into segments: both kernels within chip_smoke's
+    tolerances of their plain versions, bit-equal on a repeat, the
+    backward with the forward's state bit-equal to the backward without
+    it, and exact zeros wherever no walk reaches (check_table_repeat_and_zeros)."""
+    payload, counts, F, gx = long_table_case(1, cuda_device, opacity_hi, grid_x=10, grid_y=8)
+    out = tile_raster.tile_blend(payload, counts, F, gx)
+    compare_blend(out, tile_raster.tile_blend_plain(payload, counts, F, gx), F, "table blend long tiles")
+    gen = torch.Generator().manual_seed(3)
+    gout = torch.randn(out.shape, generator=gen).to(cuda_device)
+    got = check_table_repeat_and_zeros(payload, counts, out, gout, F, gx, "table blend long tiles")
+    K = payload.shape[2]
+    live = (torch.arange(K, device=cuda_device)[None, :] < counts[:, None]).reshape(-1)
+    compare_blend_bwd(got, tile_raster.tile_blend_bwd_plain(payload, counts, out, gout, F, gx), live, F,
+                      "table blend backward long tiles")
+
+
+@pytest.mark.cuda
+def test_table_backward_writes_zeros_past_the_walk(cuda_device):
+    """An opaque first chunk stops every pixel of every tile: the walk
+    reads chunk 0 alone, so every later chunk of the gradient table
+    (later slots of the first segment, later segments never entered, the
+    slots past a short tile's count) and every row past 8 + F hold
+    exactly 0, over memory filled with NaN first; chunk 0 holds the
+    gradients."""
+    counts = [4096] * 5 + [100]
+    payload, counts, F, gx = random_table_case(5, cuda_device, grid_x=3, grid_y=2, K=4096, counts=counts)
+    tile = torch.arange(6, device=cuda_device)
+    payload[:, 0, :128] = ((tile % gx) * 16 + 8.0)[:, None]
+    payload[:, 1, :128] = ((tile // gx) * 16 + 8.0)[:, None]
+    payload[:, 2, :128] = 1e-4
+    payload[:, 3, :128] = 0.0
+    payload[:, 4, :128] = 1e-4
+    payload[:, 5, :128] = 0.9
+    out, state = tile_raster._forward(payload, counts, F, gx)
+    assert state.n_long == 5 * (4096 // 128 // tile_raster.SEG_CHUNKS) and (out[..., F] < 1e-3).all()
+    gout = torch.ones_like(out)
+    junk = torch.full_like(payload, float("nan"))
+    del junk
+    d = tile_raster.tile_blend_bwd(payload, counts, out, gout, F, gx, state=state)
+    torch.cuda.synchronize()
+    assert torch.isfinite(d).all()
+    assert (d[:, :, 128:] == 0).all() and (d[:, 6 + F + 2:] == 0).all() and (d[:, :6 + F + 2, :128] != 0).any()
+    want = tile_raster.tile_blend_bwd_plain(payload, counts, out, gout, F, gx)
+    assert (want[:, :, 128:] == 0).all()
+    live = (torch.arange(4096, device=cuda_device)[None, :] < counts[:, None]).reshape(-1)
+    compare_blend_bwd(d, want, live, F, "table blend backward, opaque first chunk")
 
 
 @pytest.mark.cuda
