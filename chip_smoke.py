@@ -7,7 +7,8 @@
 2. builds the hand-written CUDA kernels from street_gaussians_torch/csrc
    (seven sources holding eight kernels; one nvcc each, all started
    together), and beside them the probe build of the two main-path blend
-   kernels that times their blocks (script.block_times) and the
+   kernels, the two table kernels and the probe's kernels that times
+   their blocks (script.block_times) and the
    search-only probe build of the segmented row-sum and the run expansion
    (script.search_times);
 3. holds each forward kernel against its plain PyTorch version on the
@@ -53,8 +54,15 @@
    check (script.parity_check) on the bench frame and at its own
    880x1280 size, forward and gradients, which must agree, drop no
    instance and go through the table kernels and the segmented row-sum;
-   runs the probe (script.probe_kernel) on the bench frame's payload;
-   times the four and computes their bounds;
+   holds the probe's two kernels (both on kernel 2.1's work list) on the
+   random case, on the long runs (up to 16,900 lanes at the three
+   opacities of step 3, pixels crossing every segment cut) also against
+   the plain repetition of the variant's split algebra, and on the bench
+   frame, the floor the same on a second call and the variant bit-equal
+   on a repeat; logs their per-block times (`[probe]` lines) and their
+   times replayed from a CUDA graph beside kernel 2.1's; runs the probe
+   (script.probe_kernel) on the bench frame's payload; times the four
+   and computes their bounds;
 8. writes a Waymo-format sequence (data.synthetic_waymo, 10 frames of 3
    cameras at Waymo's 1280x1920, 25,000 LiDAR points a frame, the tracked
    vehicle in view), loads it with the port's loaders (1600x1067 views)
@@ -835,8 +843,9 @@ def table_phase(dev, screen, H, W, b_args, b_ref, b_plain, b_bound) -> list:
     `b_ref` (its plain output), `b_plain` (the plain version's ms) and
     `b_bound` are the bench frame's, from steps 3b and 6. Returns the
     four new kernels' entries for the `kernels` line."""
+    from street_gaussians_torch._device import graph_ms
     from street_gaussians_torch.ops import rasterize, segsum, tile_raster, tile_raster2
-    from street_gaussians_torch.script import parity_check, probe_kernel
+    from street_gaussians_torch.script import block_times, parity_check, probe_kernel
 
     # ---- 7a. random cases ----
     case = random_table_case(2, dev)
@@ -865,11 +874,11 @@ def table_phase(dev, screen, H, W, b_args, b_ref, b_plain, b_bound) -> list:
             check_table_repeat_and_zeros(payload, counts, out, gout, F, gx, what),
             tile_raster.tile_blend_bwd_plain(payload, counts, out, gout, F, gx), live, F, f"{what}, backward"))
     rcase = random_blend_case(1, dev)
-    err_floor = compare_floor(
-        probe_kernel.probe_floor(*rcase), probe_kernel.probe_floor_plain(*rcase),
-        probe_kernel.probe_floor_plain(rcase[0].abs(), *rcase[1:]), "probe_floor random ragged (1200 tiles)")
-    err_mma = compare_blend(probe_kernel.probe_blend_mma(*rcase), tile_raster2.tile_blend_plain(*rcase),
-                            rcase[3], "probe_blend_mma random ragged (1200 tiles)")
+    err_floor, err_mma = check_probe_case(rcase, "random ragged (1200 tiles)")
+    for opacity in LONG_OPACITIES:
+        what = f"long runs (16 tiles, up to {max(LONG_RUNS)} lanes, opacity {opacity})"
+        ef, em = check_probe_case(long_blend_case(1, dev, opacity), what, split=True)
+        err_floor, err_mma = max(err_floor, ef), max(err_mma, em)
     del case, payload, out, gout, rcase
 
     # ---- 7b. the bench frame's own inputs ----
@@ -918,18 +927,26 @@ def table_phase(dev, screen, H, W, b_args, b_ref, b_plain, b_bound) -> list:
                          17 * evaluated + (44 + 6 * F) * blended)
         del bi, t_args, t_out, gout, bwd_args, live
 
-        floor_out = probe_kernel.probe_floor(*b_args)
-        err_floor = max(err_floor, compare_floor(
-            floor_out, probe_kernel.probe_floor_plain(*b_args),
-            probe_kernel.probe_floor_plain(b_args[0].abs(), *b_args[1:]), "probe_floor bench frame"))
-        mma_out = probe_kernel.probe_blend_mma(*b_args)
-        err_mma = max(err_mma, compare_blend(mma_out, b_ref, b_args[3], "probe_blend_mma bench frame"))
-        compare_blend(mma_out, tile_raster2.tile_blend_instances(*b_args), b_args[3],
-                      "probe variant against the current kernel, bench frame")
-        del floor_out, mma_out
+        ef, em = check_probe_case(b_args, "bench frame", ref=b_ref)
+        err_floor, err_mma = max(err_floor, ef), max(err_mma, em)
+        compare_blend(probe_kernel.probe_blend_mma(*b_args), tile_raster2.tile_blend_instances(*b_args),
+                      b_args[3], "probe variant against the current kernel, bench frame")
+        blocks_line = {}
+        for what, fn in (("probe_floor", lambda: probe_kernel.probe_floor(*b_args)),
+                         ("probe_blend_mma", lambda: probe_kernel.probe_blend_mma(*b_args))):
+            blocks_line[what] = [{k: v for k, v in r.items() if k != "kernel"}
+                                 for r in block_times.block_times("probe_blend", fn, b_args[3])]
+        log(f"[probe] block times, bench frame: {json.dumps(blocks_line)}")
         floor_ms = cuda_ms(lambda: probe_kernel.probe_floor(*b_args), 20)
         floor_plain = cuda_ms(lambda: probe_kernel.probe_floor_plain(*b_args), 5)
         mma_ms = cuda_ms(lambda: probe_kernel.probe_blend_mma(*b_args), 10)
+        # the same calls replayed from a CUDA graph: device time without
+        # the host's launch cost, which the floor's 0.05 ms is near
+        graph = {name: graph_ms(lambda: fn(*b_args), 20, dev)
+                 for name, fn in (("probe_floor", probe_kernel.probe_floor),
+                                  ("probe_blend_mma", probe_kernel.probe_blend_mma),
+                                  ("tile_blend_instances", tile_raster2.tile_blend_instances))}
+        log(f"[probe] bench frame, replayed from a CUDA graph: {json.dumps(graph)}")
         blocks = run_blocks(b_args[1], b_args[2], b_args[0].shape[0])
         T, F = b_args[5], b_args[3]
         floor_bound = bound(4 * (blocks * 8 * 128 + T * 256 * (F + 1) + 2 * T), 0)
@@ -968,7 +985,9 @@ def table_phase(dev, screen, H, W, b_args, b_ref, b_plain, b_bound) -> list:
     parity = {"path": "the table parity check", "parity_fwd_ms": res["fwd_ms"],
               "parity_fwd_bwd_ms": res["fwd_bwd_ms"], "tile_capacity": res["tile_capacity"]}
     parity_bwd = {**parity, "no_state_ms": tb_no_state, "zero_fill_ms": zero_ms}
-    in_probe = {"path": "the probe", "probe_ms": probe}
+    in_probe = {name: {"path": "the probe", "probe_ms": probe, "graph_ms": graph[name],
+                       "blocks": blocks_line[name]}
+                for name in ("probe_floor", "probe_blend_mma")}
     return [
         ("tile_blend_table", "street_gaussians_torch/csrc/tile_blend_table.cu",
          "street_gaussians_tpu/ops/tile_raster.py:167", launches["tile_blend_table"], err_tf,
@@ -978,11 +997,46 @@ def table_phase(dev, screen, H, W, b_args, b_ref, b_plain, b_bound) -> list:
          tb_ms, tb_plain, None, tb_bound, parity_bwd),
         ("probe_floor", "street_gaussians_torch/csrc/probe_blend.cu",
          "script/probe_kernel.py:60", probe_launches["probe_floor"], err_floor,
-         floor_ms, floor_plain, None, floor_bound, in_probe),
+         floor_ms, floor_plain, None, floor_bound, in_probe["probe_floor"]),
         ("probe_blend_mma", "street_gaussians_torch/csrc/probe_blend.cu",
          "script/probe_kernel.py:82", probe_launches["probe_blend_mma"], err_mma,
-         mma_ms, b_plain, None, b_bound, in_probe),
+         mma_ms, b_plain, None, b_bound, in_probe["probe_blend_mma"]),
     ]
+
+
+def check_probe_case(args, what: str, ref=None, split: bool = False):
+    """The probe's two kernels on tile_blend_instances' arguments `args`:
+    the floor against its plain version (FLOOR_RTOL) and the same on a
+    second call; the tensor-core variant against the blend's plain
+    version `ref` (computed when None; compare_blend) and bit for bit on
+    a second call, and with `split` against the plain repetition of its
+    own segment algebra (probe_kernel.probe_blend_mma_split_plain, at
+    kernel 2.1's segment length) too. Returns the two max abs errors."""
+    from street_gaussians_torch.ops import tile_raster2
+    from street_gaussians_torch.script import probe_kernel
+
+    floor = probe_kernel.probe_floor(*args)
+    err_floor = compare_floor(floor, probe_kernel.probe_floor_plain(*args),
+                              probe_kernel.probe_floor_plain(args[0].abs(), *args[1:]), f"probe_floor {what}")
+    if not torch.equal(probe_kernel.probe_floor(*args), floor):
+        raise AssertionError(f"probe_floor {what}: a second call differs")
+    mma = probe_kernel.probe_blend_mma(*args)
+    ref = tile_raster2.tile_blend_plain(*args) if ref is None else ref
+    err_mma = compare_blend(mma, ref, args[3], f"probe_blend_mma {what}")
+    if not torch.equal(probe_kernel.probe_blend_mma(*args), mma):
+        raise AssertionError(f"probe_blend_mma {what}: not bit-equal on a repeat")
+    seg_blocks = tile_raster2.SEG // tile_raster2.CHUNK
+    plan = tile_raster2.blend_plan_plain(args[1], args[2], seg_blocks)
+    note = ""
+    if split:
+        split_out, st = probe_kernel.probe_blend_mma_split_plain(*args, seg_blocks, return_state=True)
+        compare_blend(mma, split_out, args[3], f"probe_blend_mma {what}, against its split form")
+        crossed = int(st["entered"][st["item_seg"] > 0].sum())
+        note = f"; {crossed} pixel-segments entered past a cut in the split form"
+    log(f"[check] probe {what}: the floor the same on a second call, the variant bit-equal on a repeat; "
+        f"work list {plan['n_items']} items, {plan['n_long']} of them segments of "
+        f"{int((plan['tile_slot'] >= 0).sum())} long tiles{note}")
+    return err_floor, err_mma
 
 
 def merge_config(cfg, overrides: dict):

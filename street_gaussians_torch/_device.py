@@ -38,3 +38,28 @@ def time_ms(fn: Callable[[], object], iters: int, device: torch.device) -> float
     end.record()
     torch.cuda.synchronize(device)
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn: Callable[[], object], iters: int, device: torch.device) -> float:
+    """Mean device ms of fn() on a CUDA card with the host's launch cost
+    taken out: `iters` calls captured into one CUDA graph (after a
+    warm-up call on a side stream), its replay timed by CUDA events."""
+    if device.type != "cuda":
+        raise ValueError("graph_ms times CUDA work only")
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(device)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / iters

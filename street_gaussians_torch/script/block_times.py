@@ -4,6 +4,7 @@ run lengths they are given, and each block's start and end on the card.
     python -m street_gaussians_torch.script.block_times [--iters 3]
         [--seg 512 1024 ...] [--variant='-DSG_BWD_LB=8' ...] [--features 27]
     python -m street_gaussians_torch.script.block_times --table [--seg 512 2048 ...] [--variant=...] [--features 27]
+    python -m street_gaussians_torch.script.block_times --probe [--variant='-DSG_PROBE_MIN_BLOCKS=3' ...]
 
 builds `csrc/tile_blend.cu` and `csrc/tile_blend_bwd.cu` (with --table,
 `csrc/tile_blend_table.cu` and `csrc/tile_blend_table_bwd.cu`) a second time
@@ -40,6 +41,11 @@ prints, one JSON line each:
            SG_TABLE_MIN_BLOCKS, SG_TABLE_WIDE_MIN_BLOCKS, SG_TABLE_BWD_LB and
            SG_TABLE_BWD_MIN_BLOCKS);
            with --features F, on that table with F - 4 extra columns
+  probe    with --probe, the blocks of every launch of the probe's two
+           wrappers (`csrc/probe_blend.cu`: script.probe_kernel's floor
+           and tensor-core variant) on the bench frame, beside kernel
+           2.1's on the same inputs, and the three timed in turns in each
+           --variant build of the probe
 """
 
 from __future__ import annotations
@@ -54,10 +60,11 @@ import numpy as np
 import torch
 
 from street_gaussians_torch import serve, train
-from street_gaussians_torch._device import resolve_device, time_ms
+from street_gaussians_torch._device import graph_ms, resolve_device, time_ms
 from street_gaussians_torch.kernels import _build
 from street_gaussians_torch.models.renderer import screen_space
 from street_gaussians_torch.ops import rasterize, tile_raster, tile_raster2
+from street_gaussians_torch.script import probe_kernel
 from street_gaussians_torch.script.blend_times import bench_table_inputs
 
 PROBE_FLAGS = ("-DSG_BLOCK_TIMES",)
@@ -68,7 +75,11 @@ REGIONS = {
     "tile_blend_bwd": ("backward",),
     "tile_blend_table": ("plan", "chunk products (long tiles)", "blend", "combine (long tiles)"),
     "tile_blend_table_bwd": ("backward",),
+    "probe_blend": ("plan", "floor items", "floor combine (long tiles)", "block log-sums (long tiles)",
+                    "blend", "combine (long tiles)"),
 }
+# the module whose BUILD_FLAGS names each library's build
+FLAG_HOLDERS = {"probe_blend": probe_kernel}
 
 
 def run_length_stats(tile_count: torch.Tensor) -> dict:
@@ -102,8 +113,9 @@ def block_times(name: str, fn, num_features: int, iters: int = 3) -> list:
     regions = REGIONS[name]
     buf = torch.zeros((len(regions), REGION_STRIDE, 2), dtype=torch.int64, device=dev)
     best = None
-    saved = tile_raster2.BUILD_FLAGS
-    tile_raster2.BUILD_FLAGS = PROBE_FLAGS
+    holder = FLAG_HOLDERS.get(name, tile_raster2)
+    saved = holder.BUILD_FLAGS
+    holder.BUILD_FLAGS = PROBE_FLAGS
     try:
         fn()  # warm-up: builds and loads the probe library
         _build.check(lib.sg_set_block_times(_build.ptr(buf)), "sg_set_block_times")
@@ -117,7 +129,7 @@ def block_times(name: str, fn, num_features: int, iters: int = 3) -> list:
                 best = t
         _build.check(lib.sg_set_block_times(None), "sg_set_block_times")
     finally:
-        tile_raster2.BUILD_FLAGS = saved
+        holder.BUILD_FLAGS = saved
     ran = best[..., 1] > 0
     t0 = best[..., 0][ran].min()
     out = []
@@ -164,9 +176,9 @@ def sweep(fwd, bwd, segs, variants, iters: int = 20) -> list:
     return rows
 
 
-def bench_inputs(device, seed: int = 0):
-    """(forward args of the bench frame, backward args of a bench train
-    step): the arguments of tile_blend_instances and of tile_blend_bwd."""
+def bench_frame_inputs(device, seed: int = 0):
+    """tile_blend_instances' arguments on the bench frame (serve.bench_scene,
+    frame 0, at the serving options)."""
     scene, params = serve.bench_scene(seed=seed, device=device)
     opts = serve.SERVE_OPTS
     frame = scene.frames[0]
@@ -176,9 +188,14 @@ def bench_inputs(device, seed: int = 0):
         cfg = rasterize.RasterizeConfig(opts.tile_capacity, opts.instance_capacity,
                                         corner_cull=opts.corner_cull)
         bi = rasterize.blend_inputs(screen, frame.cam.H, frame.cam.W, config=cfg)
-    fwd = (bi.payload, bi.bins.tile_start, bi.bins.tile_count, bi.num_features, bi.grid_x,
-           bi.grid_x * bi.grid_y)
-    del scene, params, screen
+    return (bi.payload, bi.bins.tile_start, bi.bins.tile_count, bi.num_features, bi.grid_x,
+            bi.grid_x * bi.grid_y)
+
+
+def bench_inputs(device, seed: int = 0):
+    """(forward args of the bench frame, backward args of a bench train
+    step): the arguments of tile_blend_instances and of tile_blend_bwd."""
+    fwd = bench_frame_inputs(device, seed)
     cell = train.bench_train_cell(device, seed=seed)
     calls = []
     real = tile_raster2.tile_blend_bwd
@@ -240,6 +257,36 @@ def table_main(device, iters: int, seed: int, segs=(), features: int = 4, varian
             tile_raster.SEG_CHUNKS, tile_raster2.BUILD_FLAGS = saved
 
 
+def probe_main(device, iters: int, seed: int, variants=()) -> None:
+    """--probe: block times of every launch of the probe's floor and
+    tensor-core variant on the bench frame, and of kernel 2.1 beside them;
+    with --variant, the three timed in turns in each build of the probe
+    with other nvcc flags (its tuning macro: SG_PROBE_MIN_BLOCKS)."""
+    args = bench_frame_inputs(device, seed)
+    F = args[3]
+    print(json.dumps({"runs": "bench frame 0 (serve)", **run_length_stats(args[2])}))
+    fns = (("probe floor", "probe_blend", lambda: probe_kernel.probe_floor(*args)),
+           ("probe tensor-core variant", "probe_blend", lambda: probe_kernel.probe_blend_mma(*args)),
+           ("kernel 2.1 (current)", "tile_blend", lambda: tile_raster2.tile_blend_instances(*args)))
+    with torch.no_grad():
+        for what, name, fn in fns:
+            for row in block_times(name, fn, F, iters):
+                print(json.dumps({"what": what, **row}))
+        saved = probe_kernel.BUILD_FLAGS
+        first = None
+        try:
+            for flags in variants or [""]:
+                probe_kernel.BUILD_FLAGS = tuple(flags.split())
+                out = probe_kernel.probe_blend_mma(*args)
+                first = out if first is None else first
+                print(json.dumps({"probe": "times", "variant": flags,
+                                  "variant_equal_to_the_first_build": bool(torch.equal(out, first)),
+                                  **{what: time_ms(fn, 20, device) for what, _, fn in fns},
+                                  **{f"{what}, graph": graph_ms(fn, 20, device) for what, _, fn in fns}}))
+        finally:
+            probe_kernel.BUILD_FLAGS = saved
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=3)
@@ -251,8 +298,21 @@ def main(argv=None) -> None:
                     help="blend features; above 4 the bench frame with random extra columns")
     ap.add_argument("--table", action="store_true",
                     help="kernels 2.5 and 2.6 on the bench frame's dense table instead")
+    ap.add_argument("--probe", action="store_true",
+                    help="the probe's kernels 7a and 7b (and 2.1) on the bench frame instead")
     args = ap.parse_args(argv)
     device = resolve_device(None)
+    if args.probe:
+        with ThreadPoolExecutor(1 + len(args.variant)) as pool:
+            for f in [pool.submit(_build.build, ["probe_blend"], flags.split()) for flags in args.variant]:
+                f.result()
+        for name, info in _build.build(("probe_blend", "tile_blend"), PROBE_FLAGS).items():
+            for ln in info["log"].splitlines():
+                if "registers" in ln or ("Compiling" in ln and "ILi4" in ln):
+                    print(f"[build] {name}: {ln.strip()}")
+        probe_main(device, args.iters, args.seed, args.variant)
+        _print_device(device)
+        return
     if args.table:
         names = ("tile_blend_table", "tile_blend_table_bwd")
         with ThreadPoolExecutor(1 + len(args.variant)) as pool:

@@ -5,22 +5,25 @@ blend's forward kernel against two variants on the bench frame's payload
 (1600x1064, 220,000 background points grown x3, 4 actors, frame 2, eval
 mode, instance_capacity 2^21, tile_capacity 1024):
 
-  floor    reads every payload block of every tile's run from a grid of
-           one block per tile, with no blend arithmetic (`probe_floor`)
-  current  ops/tile_raster2.tile_blend_instances (long runs split into
-           segments, one block each)
-  variant  the same function, one block per tile, with the in-block
-           prefix sums as products with a triangular 0/1 matrix on the
-           tensor cores (`probe_blend_mma`)
+  floor    reads every payload block of every tile's run, with no blend
+           arithmetic (`probe_floor`)
+  current  ops/tile_raster2.tile_blend_instances (kernel 2.1)
+  variant  the same function with the in-block prefix sums as products
+           with a triangular 0/1 matrix on the tensor cores
+           (`probe_blend_mma`)
 
-prints max |current - variant|, and times forward + backward of the
-current kernels under the loss sum(out * out) * 1e-6.
+all three at kernel 2.1's decomposition: the floor and the variant walk
+its work list (runs longer than SEG lanes cut into segments, one thread
+block each). It prints max |current - variant|, and times forward +
+backward of the current kernels under the loss sum(out * out) * 1e-6.
 
     python -m street_gaussians_torch.script.probe_kernel [--iters 20]
 
-Both variants are `csrc/probe_blend.cu`. On a CPU tensor `probe_floor`
-runs `probe_floor_plain` and `probe_blend_mma` runs the blend's plain
-version, which computes the same function.
+Both variants are `csrc/probe_blend.cu` (see its head for the design).
+On a CPU tensor `probe_floor` runs `probe_floor_plain` and
+`probe_blend_mma` runs the blend's plain version, which computes the same
+function; `probe_blend_mma_split_plain` repeats the variant's segment
+algebra in plain PyTorch for the checks.
 """
 
 from __future__ import annotations
@@ -38,18 +41,22 @@ from street_gaussians_torch.kernels import _build
 from street_gaussians_torch.models.renderer import RenderOptions, SceneParams, screen_space
 from street_gaussians_torch.ops import tile_raster2
 from street_gaussians_torch.ops.rasterize import RasterizeConfig, blend_inputs
-from street_gaussians_torch.ops.tile_raster2 import CHUNK, PIX
+from street_gaussians_torch.ops.tile_raster2 import CHUNK, LOG_T_EPS, PAYLOAD_HEADER, PIX
 
 FLOOR_ROWS = 8  # payload rows the floor sums
 # feature counts csrc/probe_blend.cu is instantiated for (kernel 2.1 at
 # F = 4 is what it ablates)
 MAX_FEATURES = 8
+# more nvcc flags for the library: script/block_times.py sets a probe
+# build here for the length of its measurement
+BUILD_FLAGS: tuple = ()
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.probe_floor, lib.probe_blend_mma):  # tile_blend_fwd's arguments
-        fn.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.probe_floor.argtypes = [p] * 6 + [i] * 6 + [p]
+    lib.probe_blend_mma.argtypes = [p] * 7 + [i] * 7 + [p]
+    for fn in (lib.probe_floor, lib.probe_blend_mma):
         fn.restype = ctypes.c_int
 
 
@@ -72,16 +79,30 @@ def probe_floor_plain(payload, tile_start, tile_count, num_features, grid_x, num
 
 
 def _launch(entry: str, payload, tile_start, tile_count, num_features, grid_x, num_tiles):
+    """Launch `entry` of csrc/probe_blend.cu on kernel 2.1's work list
+    (segments of SEG / 128 payload blocks), sized by the shapes' bounds."""
     _build.require_cuda(payload, entry)
     if not 1 <= num_features <= MAX_FEATURES:
         raise ValueError(f"{entry}: the kernel takes 1..{MAX_FEATURES} features, got {num_features}")
     payload, tile_start, tile_count = (t.contiguous() for t in (payload, tile_start, tile_count))
-    out = torch.empty((num_tiles, PIX, num_features + 1), dtype=torch.float32, device=payload.device)
-    fn = getattr(_build.load("probe_blend", _bind), entry)
-    err = fn(
-        _build.ptr(payload), _build.ptr(tile_start), _build.ptr(tile_count), _build.ptr(out),
-        num_tiles, grid_x, payload.shape[1], num_features, _build.stream_of(payload),
-    )
+    dev = payload.device
+    seg_blocks = tile_raster2.SEG // CHUNK
+    max_long, max_items = tile_raster2.plan_bounds(payload.shape[0], num_tiles, seg_blocks)
+    plan = torch.empty(2 + num_tiles + 2 * max_items, dtype=torch.int32, device=dev)
+    out = torch.empty((num_tiles, PIX, num_features + 1), dtype=torch.float32, device=dev)
+    fn = getattr(_build.load("probe_blend", _bind, BUILD_FLAGS), entry)
+    ptr = _build.ptr
+    if entry == "probe_floor":
+        part = torch.empty(max(max_long, 1), dtype=torch.float32, device=dev)
+        err = fn(ptr(payload), ptr(tile_start), ptr(tile_count), ptr(plan), ptr(part), ptr(out),
+                 num_tiles, payload.shape[1], num_features, seg_blocks, max_long, max_items,
+                 _build.stream_of(payload))
+    else:
+        blocklog = torch.empty((payload.shape[0], PIX), dtype=torch.float32, device=dev)
+        part = torch.empty((max_long, PIX, num_features + 1), dtype=torch.float32, device=dev)
+        err = fn(ptr(payload), ptr(tile_start), ptr(tile_count), ptr(plan), ptr(blocklog), ptr(part),
+                 ptr(out), num_tiles, grid_x, payload.shape[1], num_features, seg_blocks, max_long,
+                 max_items, _build.stream_of(payload))
     _build.check(err, entry)
     return out
 
@@ -116,6 +137,129 @@ def probe_blend_mma(payload, tile_start, tile_count, num_features, grid_x, num_t
 
 
 probe_blend_mma.launches = 0
+
+# lanes a tensor-core product spans (csrc/probe_blend.cu's slabs)
+SLAB = 8
+# items the split emulation walks together (bounds its [items, 256, 128]
+# temporaries)
+_SPLIT_ITEMS = 256
+
+
+def _block_prefix(logs: torch.Tensor):
+    """The variant's in-block prefix of logs [m, 256, 128]: for each slab
+    of 8 lanes its inclusive prefix `loc` = logs x L and total `tot` =
+    logs x ones (column 7 of L is all ones), each the f32 rounding of the
+    exact sum (the f64 sums of at most 8 of these f32 logs are exact); the
+    prefix before a slab, R, carried in f32 adds. Returns (S = R + loc
+    [m, 256, 128], R after the last slab [m, 256])."""
+    m = logs.shape[0]
+    L = torch.triu(torch.ones((SLAB, SLAB), dtype=torch.float64, device=logs.device))
+    loc = (logs.double().reshape(m, PIX, CHUNK // SLAB, SLAB) @ L).float()
+    R = torch.zeros((m, PIX), dtype=torch.float32, device=logs.device)
+    before = []
+    for n in range(CHUNK // SLAB):
+        before.append(R)
+        R = R + loc[:, :, n, SLAB - 1]
+    S = torch.stack(before, dim=2)[..., None] + loc
+    return S.reshape(m, PIX, CHUNK), R
+
+
+def probe_blend_mma_split_plain(payload, tile_start, tile_count, num_features, grid_x, num_tiles,
+                                seg_blocks: int, return_state: bool = False):
+    """Plain PyTorch repetition of probe_blend_mma's design, for the
+    checks: kernel 2.1's work list at seg_blocks payload blocks a
+    segment; a first pass giving each block of a long tile's segments
+    but its last R, its per-pixel log-sum from the block's products
+    (`_block_prefix`), over every passing lane; a segment entering with
+    the fold of the earlier blocks' R in block order; each item walking
+    its blocks from that state alone, the stop test and the weights on S
+    = R + loc, a pixel stopping at the first flagged lane (the flag
+    prefix still 0 before it) and folding logT += R at the end of a
+    block it crosses; the partials added in segment order. Returns
+    tile_blend_instances' output and, with return_state, per tile and
+    pixel the lane of the run at which the pixel stopped (-1: never) and
+    the number of lanes it blended, and per item whether the pixel
+    entered it."""
+    F = num_features
+    dev = payload.device
+    plan = tile_raster2.blend_plan_plain(tile_start, tile_count, seg_blocks)
+    n_long = plan["n_long"]
+    tile = plan["item_tile"].long()
+    seg = plan["item_seg"].long()
+    n = tile.numel()
+    start = tile_start.long()[tile]
+    cnt = tile_count.long()[tile]
+    b0 = start // CHUNK
+    b_end = b0 + tile_raster2.run_blocks(tile_start, tile_count)[tile]
+    b_first = b0 + seg * seg_blocks
+    b_stop = torch.minimum(b_first + seg_blocks, b_end)
+    last = b_stop == b_end
+    items = torch.arange(n, device=dev)
+    px, py = tile_raster2._pixel_coords(tile, grid_x)
+    no = torch.zeros((n, PIX), dtype=torch.bool, device=dev)
+    zero = torch.zeros((n, PIX), dtype=torch.float32, device=dev)
+
+    def block(act, i, done):
+        k = tile_raster2._plain_block(payload, b_first, start, cnt, items, act, i, px, py, done, zero)
+        return k, _block_prefix(k.logs)
+
+    # the first pass
+    blocklog = torch.zeros((payload.shape[0], PIX), dtype=torch.float32, device=dev)
+    cut = items[:n_long][~last[:n_long]]
+    for c0 in range(0, cut.numel(), _SPLIT_ITEMS):
+        for i in range(seg_blocks):  # the segments but the last are whole
+            act = cut[c0:c0 + _SPLIT_ITEMS]
+            _, (_, R) = block(act, i, no)
+            blocklog[b_first[act] + i] = R
+    # the entering state: the fold of the earlier blocks' sums
+    logT = torch.zeros((n, PIX), dtype=torch.float32, device=dev)
+    for j in range(int((b_first - b0).max()) if n else 0):
+        has = (j < b_first - b0)[:, None]
+        logT = torch.where(has, logT + blocklog[torch.clamp(b0 + j, max=payload.shape[0] - 1)], logT)
+    entered = logT >= LOG_T_EPS
+    done = ~entered
+    accum = torch.zeros((n, PIX, F), dtype=torch.float32, device=dev)
+    stop_lane = torch.full((n, PIX), -1, dtype=torch.int64, device=dev)
+    blended = torch.zeros((n, PIX), dtype=torch.int64, device=dev)
+    for i in range(int((b_stop - b_first).max()) if n else 0):
+        live = ((b_first + i < b_stop) & ~done.all(dim=1)).nonzero().squeeze(1)
+        for c0 in range(0, live.numel(), _SPLIT_ITEMS):
+            act = live[c0:c0 + _SPLIT_ITEMS]
+            k, (S, R) = block(act, i, done)
+            on = k.a > 0.0
+            lt = logT[act]
+            v = lt[:, :, None] + S
+            flag = on & ~(v >= LOG_T_EPS)
+            before = torch.cumsum(flag.to(torch.int32), dim=2)  # the flag prefix
+            blend = on & (before == 0)
+            first = flag & (before == 1)
+            w = torch.where(blend, k.a * torch.exp(v - k.logs), 0.0)
+            feat = k.blk[:, PAYLOAD_HEADER:PAYLOAD_HEADER + F, :]
+            accum[act] += torch.einsum("mpl,mfl->mpf", w, feat)
+            blended[act] += blend.sum(dim=2)
+            stopped = first.any(dim=2)
+            t_stop = torch.where(first, v - k.logs, 0.0).sum(dim=2)
+            lane = (k.bidx[:, None] * CHUNK - start[act][:, None]) + first.to(torch.int64).argmax(dim=2)
+            stop_lane[act] = torch.where(stopped, lane, stop_lane[act])
+            logT[act] = torch.where(stopped, t_stop, torch.where(done[act], lt, lt + R))
+            done[act] |= stopped
+    t_final = torch.where(entered & (done | last[:, None]), torch.exp(logT), 0.0)
+    part = torch.cat([accum, t_final[:, :, None]], dim=2)
+    out = torch.zeros((num_tiles, PIX, F + 1), dtype=torch.float32, device=dev)
+    out[tile[n_long:]] = part[n_long:]
+    for k_seg in range(int(seg[:n_long].max()) + 1 if n_long else 0):  # segment order
+        mine = (seg[:n_long] == k_seg).nonzero().squeeze(1)
+        out[tile[mine]] += part[mine]
+    if not return_state:
+        return out
+    # a pixel stops in one item of its tile at most
+    tile_stop = torch.zeros((num_tiles, PIX), dtype=torch.int64, device=dev)
+    tile_stop.index_add_(0, tile, stop_lane + 1)
+    tile_stop -= 1
+    tile_blended = torch.zeros((num_tiles, PIX), dtype=torch.int64, device=dev)
+    tile_blended.index_add_(0, tile, blended)
+    return out, {"plan": plan, "stop_lane": tile_stop, "blended": tile_blended, "entered": entered,
+                 "item_tile": tile, "item_seg": seg, "blocklog": blocklog}
 
 
 def run_probe(payload, tile_start, tile_count, num_features, grid_x, num_tiles,

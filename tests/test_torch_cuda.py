@@ -18,6 +18,7 @@ from chip_smoke import (
     SEG_RTOL,
     compare_blend,
     compare_blend_bwd,
+    check_probe_case,
     check_table_repeat_and_zeros,
     live_lanes,
     long_blend_case,
@@ -444,6 +445,18 @@ def test_probe_kernels_match_plain(cuda_device):
     bound = 1e-5 * probe_kernel.probe_floor_plain(case[0].abs(), *case[1:])
     assert ((floor - probe_kernel.probe_floor_plain(*case)).abs() <= bound + 1e-30).all()
     compare_blend(mma, tile_raster2.tile_blend_plain(*case), case[3], "probe_blend_mma kernel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opacity", LONG_OPACITIES)
+def test_probe_kernels_on_runs_of_several_segments(cuda_device, opacity):
+    """Runs of up to 16,900 lanes, which both kernels cut into segments of
+    kernel 2.1's length (pixels that stop in the first segment, in a
+    later one and never, crossing every cut): chip_smoke.check_probe_case
+    holds the floor (FLOOR_RTOL, the same on a second call) and the
+    variant (compare_blend against the plain blend and against the plain
+    repetition of its split algebra, bit-equal on a repeat)."""
+    check_probe_case(long_blend_case(1, cuda_device, opacity), f"long runs, opacity {opacity}", split=True)
 
 
 @pytest.mark.cuda

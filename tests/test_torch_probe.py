@@ -1,21 +1,27 @@
 """The blend probe (street_gaussians_torch/script/probe_kernel.py) on the
 CPU: the floor's plain version against a closed form in numpy, the
 tensor-core variant's CPU path (the blend's plain version: it computes
-the same function), and the probe end to end at a toy size.
+the same function), the plain repetition of the variant's segment
+algebra (`probe_blend_mma_split_plain`), and the probe end to end at a
+toy size.
 
-The JAX package's script/probe_kernel.py cannot run any more (it unpacks
-five step tables where tile_raster2._flatten_steps returns two), so the
-floor is held against what its body states: the sums of rows 0..7 of
-every payload block of a tile's run, added to all [256, F] outputs,
-T = 1. Tolerance: 1e-5 * the sum of |values| (f32 sums in another
-order).
+The floor is held here against what its body states: the sums of rows
+0..7 of every payload block of a tile's run, added to all [256, F]
+outputs, T = 1; tests/test_torch_probe_jax.py holds both variants
+against the JAX script's own kernel bodies in interpret mode.
+Tolerances: the floor 1e-5 * the sum of |values| (f32 sums in another
+order); the blend by chip_smoke.compare_blend (1e-5 relative, a stop
+that lands within rounding of 1e-4 may move by one Gaussian in at most
+one pixel). The split form's stop decisions are checked exactly.
 """
+
+import functools
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import random_blend_case
+from chip_smoke import compare_blend, random_blend_case
 from street_gaussians_torch.ops import tile_raster2
 from street_gaussians_torch.script import probe_kernel
 
@@ -67,3 +73,52 @@ def test_probe_needs_a_device_when_cuda_is_absent(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         probe_kernel.bench_payload()
+
+
+# runs of up to 12 payload blocks on a 3x2 grid (one empty), cut by the
+# split form into segments of 1 and 2 blocks, and not at all; at low
+# opacity every pixel crosses every cut, at high opacity pixels stop in
+# the first segment and in later ones
+SPLIT_COUNTS = (1500, 0, 300, 700, 1200, 90)
+SPLIT_OPACITY = {"crosses": 0.05, "stops": 0.99}
+NO_CUT = 1 << 20
+
+
+@functools.lru_cache(maxsize=None)
+def split_case(name):
+    return random_blend_case(4, "cpu", grid_x=3, grid_y=2, counts=SPLIT_COUNTS, opacity_hi=SPLIT_OPACITY[name])
+
+
+@functools.lru_cache(maxsize=None)
+def split_run(name, seg_blocks):
+    return probe_kernel.probe_blend_mma_split_plain(*split_case(name), seg_blocks, return_state=True)
+
+
+@pytest.mark.parametrize("seg_blocks", [1, 2])
+@pytest.mark.parametrize("name", list(SPLIT_OPACITY))
+def test_split_form_stops_every_pixel_where_the_uncut_walk_does(name, seg_blocks):
+    """Exact: the lane at which each pixel stops, the number of lanes it
+    blends and its final T are those of the walk without cuts, since a
+    segment enters with the fold of the earlier blocks' sums that the
+    walk carries."""
+    got, st = split_run(name, seg_blocks)
+    want, ref = split_run(name, NO_CUT)
+    assert st["plan"]["n_long"] > 0 and ref["plan"]["n_long"] == 0
+    assert torch.equal(st["stop_lane"], ref["stop_lane"])
+    assert torch.equal(st["blended"], ref["blended"])
+    assert torch.equal(got[..., -1], want[..., -1])
+    later = st["item_seg"] > 0
+    if name == "crosses":
+        assert (ref["stop_lane"] < 0).all() and st["entered"][later].all()
+    else:
+        lanes = ref["stop_lane"][ref["stop_lane"] >= 0]
+        assert (lanes < 128 * seg_blocks).any() and (lanes >= 128 * seg_blocks).any()
+        assert not st["entered"][later].all()
+
+
+@pytest.mark.parametrize("seg_blocks", [1, 2, NO_CUT])
+@pytest.mark.parametrize("name", list(SPLIT_OPACITY))
+def test_split_form_matches_the_blend_plain_version(name, seg_blocks):
+    case = split_case(name)
+    got, _ = split_run(name, seg_blocks)
+    compare_blend(got, tile_raster2.tile_blend_plain(*case), case[3], f"split form {name}, {seg_blocks} blocks")
