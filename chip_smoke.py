@@ -165,13 +165,30 @@
    records; 13c runs `make_ply` on the checkpoint (the vertices the rows
    visible at viewer.frame_id); 13d runs the root
    script/summarize_train_log.py on the log;
-14. prints one `kernels` JSON line with all eight kernels (with the
+14. data preparation and the viewer (`[prep]` lines, see prep_phase):
+   a Waymo-sized TFRecord (8 frames, five cameras at 1920x1280 and
+   1920x886 as PNG, the TOP laser at 64x2650 and four at 200x600)
+   through the port's converter (the LiDAR on the card), LiDAR depth
+   (card) and sky masks, each stage timed; the LiDAR passes again on the
+   CPU (points within 1 float32 ULP, projections, depth masks and text
+   files equal); `train` on the converted sequence (cameras 0-2, LiDAR
+   depth and sky on, two densify rounds) with a viewer client that takes
+   three 1920x1280 frames and drops while training goes on (kernels
+   2.1-2.4 launched, no drop, every record finite; the four held against
+   their plain versions on the last step's inputs); the bridge on the
+   trained state serves three views three times, each timed, equal byte
+   for byte to direct renders (2.1 and 2.3 launched, held against their
+   plain versions on the first view's inputs); train steps from the
+   trained state with a frame served after each and without, in turns;
+15. prints one `kernels` JSON line with all eight kernels (with the
    loaded sequence's launches before and after the gate, step 9's in
    training and in render_sets, step 10's F = 27 times, bounds,
    launches and the F = 4 times in turns with them, steps 11's and
-   12's launches on the band and gauss paths, and step 13's launches
-   with the oracle's errors);
-15. prints {"ok": true, "device": {...}} as the last line.
+   12's launches on the band and gauss paths, step 13's launches
+   with the oracle's errors and step 14's in training and in the
+   viewer's renders, with step 14's errors), after one `[prep]` JSON
+   line of step 14's numbers;
+16. prints {"ok": true, "device": {...}} as the last line.
 
 Any failure raises (exit code != 0). Without CUDA, or without the rest
 of the repository beside it, it fails before printing a result.
@@ -766,6 +783,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         # ---- 13. the per-pixel oracle, the demo scene's convergence, make_ply ----
         s13 = step13_phase(dev, tmp, smi)
+        torch.cuda.empty_cache()
+        # ---- 14. data preparation from a Waymo-sized TFRecord, training with the viewer ----
+        prep = prep_phase(dev, tmp, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -816,6 +836,11 @@ def main() -> int:
             else:
                 oracle_err = oracle["gradients_scaled"]
             extra = {**extra, "step13_launches": step13_launches, "oracle_err": oracle_err}
+        if name in prep["errors"]:
+            err = max(err, prep["errors"][name])
+        step14_launches = {k: prep[k][name] for k in ("train_launches", "viewer_launches") if name in prep[k]}
+        if step14_launches:
+            extra = {**extra, "step14_launches": step14_launches}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": n, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
                         "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": lib, **extra})
@@ -832,6 +857,7 @@ def main() -> int:
     log(f"[gauss] summary: {json.dumps(gs['numbers'])}")
     log(f"[demo] summary: {json.dumps(s13['numbers'])}")
     log(smi)
+    print("[prep] " + json.dumps({k: v for k, v in prep.items() if k not in ("viewer_events",)}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -2139,21 +2165,24 @@ class CallRecorder:
             setattr(m, self.fn.__name__, self.fn)
 
 
-def gate_step_checks(recs: dict, capacity: int, where: str) -> dict:
-    """Step 8e: the four main-path kernels on the inputs that one train
-    step at the gate gave them, for the full render and for the object
-    render (`recs`: CallRecorders of fill.expand_runs,
-    tile_raster2._forward, tile_raster2.tile_blend_bwd and
-    segsum.segment_rowsum), against their plain versions at the
-    tolerances of steps 3 and 5, with the run lengths of both renders.
-    Returns each kernel's largest error."""
+def gate_step_checks(recs: dict, capacity: int, where: str, renders=("full", "object")) -> dict:
+    """Step 8e: the main-path kernels on the inputs that one train step
+    at the gate gave them, for each of `renders` (the order of the
+    forward calls: the full render and the object render at the gate),
+    against their plain versions at the tolerances of steps 3 and 5,
+    with the run lengths of each render. `recs`: CallRecorders of
+    fill.expand_runs and tile_raster2._forward, and for a train step
+    also of tile_raster2.tile_blend_bwd and segsum.segment_rowsum (one
+    call a render, and one for the sky). Returns each kernel's largest
+    error."""
     from street_gaussians_torch.ops import fill, segsum, tile_raster2
     from street_gaussians_torch.script import block_times
 
-    n = {k: len(r.calls) for k, r in recs.items()}
-    if n != {"expand_runs": 2, "forward": 2, "tile_blend_bwd": 2, "segment_rowsum": 3}:
-        raise AssertionError(f"a train step at the gate made {n} kernel calls")
-    renders = ("full", "object")  # the order of the forward calls
+    r = len(renders)
+    want = {"expand_runs": r, "forward": r, "tile_blend_bwd": r, "segment_rowsum": r + 1}
+    n = {k: len(rec.calls) for k, rec in recs.items()}
+    if not {"expand_runs", "forward"} <= set(n) or n != {k: want[k] for k in n}:
+        raise AssertionError(f"{where}: {n} kernel calls for the renders {renders}")
     err = {}
     with torch.no_grad():
         for label, (args, _) in zip(renders, recs["expand_runs"].calls):
@@ -2171,6 +2200,8 @@ def gate_step_checks(recs: dict, capacity: int, where: str) -> dict:
             err["tile_blend_instances"] = max(err["tile_blend_instances"], compare_blend(
                 tile_raster2.tile_blend_instances(*args), tile_raster2.tile_blend_plain(*args), F,
                 f"tile_blend {where}, {label} render ({T} tiles)"))
+        if "tile_blend_bwd" not in recs:
+            return err
         seen, err["tile_blend_bwd"] = [], 0.0
         for args, kw in recs["tile_blend_bwd"].calls:
             payload, starts, counts, out, gout, F, gx, T = args
@@ -2197,8 +2228,8 @@ def gate_step_checks(recs: dict, capacity: int, where: str) -> dict:
                 got, segsum.segment_rowsum_plain(d, keys, num_segments=N),
                 segsum.segment_rowsum_plain(d.abs(), keys, num_segments=N), what))
             check_emulated(got, d, keys, N, what)
-        if len(rows) != 2:
-            raise AssertionError(f"the gate step made {len(rows)} payload row-sums, expected 2")
+        if len(rows) != r:
+            raise AssertionError(f"{where}: {len(rows)} payload row-sums, expected {r}")
     return err
 
 
@@ -3885,6 +3916,449 @@ def step13_phase(dev, tmp: str, smi: str) -> dict:
     return {"launches": {"oracle": a["launches"], "demo_train": b["train_launches"],
                          "demo_render": b["render_launches"]},
             "oracle_errors": a["errors"], "numbers": numbers}
+
+
+# ---- step 14: data preparation and the viewer ----
+PREP_FRAMES = 8  # a Waymo segment cut from 198 frames to 8; every sensor at its full size
+PREP_ITERS = 70
+PREP_DENSIFY = (10, 30)  # densify_from_iter, densification_interval: densify at 30 and 60
+PREP_VIEWER_AFTER = 30  # the client attaches once the log holds this iteration
+PREP_VIEWS = 3  # viewer frames during training
+PREP_VIEW = (1280, 1920)  # the viewer's H, W: Waymo's FRONT
+PREP_SERVE_ROUNDS = 3  # 14e serves the PREP_VIEWS views this many times
+PREP_TURNS, PREP_TURN_STEPS = 4, 10  # 14f: windows of steps with the viewer and without, in turns
+
+
+def f32_ulps(a: np.ndarray, b: np.ndarray) -> int:
+    """The largest distance in float32 units in the last place between a
+    and b (same shape), on the monotonic integer line of float32 bits."""
+    ia, ib = (np.asarray(x, np.float32).view(np.int32).astype(np.int64) for x in (a, b))
+    ia, ib = (np.where(i < 0, -(2**31) - i, i) for i in (ia, ib))
+    return int(np.abs(ia - ib).max(initial=0))
+
+
+def viewer_message(cam, H: int, W: int, train: bool, keep_alive: bool) -> dict:
+    """The SIBR camera message (network_gui's wire format: the transposed
+    world->view matrix, y and z columns negated) of cam's pose and field
+    of view at H x W."""
+    w2c = cam.w2c.cpu().numpy().astype(np.float32)
+    K = cam.K.cpu().numpy()
+    wvt = w2c.T.copy()
+    wvt[:, 1] *= -1
+    wvt[:, 2] *= -1
+    return {"resolution_x": W, "resolution_y": H, "fov_x": 2 * math.atan(cam.W / (2 * K[0, 0])),
+            "fov_y": 2 * math.atan(cam.H / (2 * K[1, 1])), "z_near": 0.01, "z_far": 100.0, "train": train,
+            "keep_alive": keep_alive, "scaling_modifier": 1.0, "view_matrix": wvt.reshape(-1).tolist(),
+            "view_projection_matrix": np.eye(4, dtype=np.float32).reshape(-1).tolist()}
+
+
+def viewer_send(sock, msg: dict) -> None:
+    data = json.dumps(msg).encode("utf-8")
+    sock.sendall(len(data).to_bytes(4, "little") + data)
+
+
+def viewer_recv(sock, n: int) -> bytes:
+    buf = bytearray()
+    while len(buf) < n:
+        chunk = sock.recv(min(n - len(buf), 1 << 20))
+        if not chunk:
+            raise ConnectionError(f"the bridge closed after {len(buf)} of {n} bytes")
+        buf += chunk
+    return bytes(buf)
+
+
+def viewer_frame(sock, H: int, W: int):
+    """(rgb bytes, verify string) of one frame."""
+    img = viewer_recv(sock, H * W * 3)
+    n = int.from_bytes(viewer_recv(sock, 4), "little")
+    return img, viewer_recv(sock, n).decode("ascii")
+
+
+def prep_phase(dev, tmp: str, smi: str) -> dict:
+    """Step 14 (`[prep]` lines): 14a writes a Waymo-sized TFRecord
+    (data.synthetic_tfrecord: PREP_FRAMES frames, FRONT, FRONT_LEFT and
+    FRONT_RIGHT at 1920x1280, SIDE_LEFT and SIDE_RIGHT at 1920x886 as PNG
+    bytes, the TOP laser at 64x2650 and four side lasers at 200x600 with
+    camera projections, a moving vehicle ahead and a static sign); 14b
+    converts it (script.waymo.waymo_converter, every process_list entry,
+    the LiDAR on the card), then generate_lidar_depth (card) and
+    generate_sky_mask, each stage timed; 14c runs the LiDAR passes again
+    on the CPU: the points within 1 float32 ULP of the card's, the camera
+    projections, every depth mask and every text file equal; 14d trains
+    the converted sequence through `train --config
+    configs/example/waymo_train_002.yaml` (cameras 0-2, LiDAR depth and
+    sky losses on, densify at 30 and 60, the instance capacity twice the
+    largest demand of the train views and the viewer's), with the viewer
+    on at port 0: a client attaches once the log holds iteration
+    PREP_VIEWER_AFTER, asks for PREP_VIEWS views at 1920x1280 (train and
+    keep_alive set) and drops; every record finite, no instance dropped,
+    kernels 2.1-2.4 launched, the frames all received at their size,
+    training on to its last iteration after the drop, and the four
+    kernels held against their plain versions on the last step's inputs
+    (gate_step_checks). A new bridge on the trained state then serves one
+    client: 14e the PREP_VIEWS views PREP_SERVE_ROUNDS times, each timed,
+    their bytes equal to (clip(render_frame(...)["rgb"], 0, 1) *
+    255).astype(uint8), kernels 2.1 and 2.3 launched once a view and held
+    against their plain versions on the first view's inputs; 14f
+    PREP_TURNS turns of PREP_TURN_STEPS train steps from the trained
+    state, with a frame served after each step and without, alternating
+    which goes first. Returns the launches, the kernels' errors and the
+    numbers printed."""
+    import threading
+
+    from street_gaussians_torch import runner
+    from street_gaussians_torch import train as train_cli
+    from street_gaussians_torch.config import load_config
+    from street_gaussians_torch.data.dataset import load_ground_truth
+    from street_gaussians_torch.data.synthetic_tfrecord import write_synthetic_tfrecord
+    from street_gaussians_torch.models.renderer import render_frame, screen_space
+    from street_gaussians_torch.network_gui import camera_from_message
+    from street_gaussians_torch.ops import fill, tile_raster2
+    from street_gaussians_torch.script.waymo import generate_lidar_depth, generate_sky_mask, waymo_converter
+    from street_gaussians_torch.utils.image_io import imread
+
+    t_phase = time.perf_counter()
+    res = {"card": smi, "seconds": {}}
+    sec = res["seconds"]
+    raw, conv, conv_cpu = (os.path.join(tmp, d) for d in ("prep_raw", "prep_conv", "prep_conv_cpu"))
+    os.makedirs(raw)
+    seg = os.path.join(raw, "segment-0000.tfrecord")
+
+    # ---- 14a. the TFRecord ----
+    t0 = time.perf_counter()
+    write_synthetic_tfrecord(seg, num_frames=PREP_FRAMES)
+    sec["write_tfrecord"] = time.perf_counter() - t0
+    res["tfrecord_mib"] = os.path.getsize(seg) / 2**20
+
+    # ---- 14b. convert, LiDAR depth, sky masks ----
+    def lidar_split(run):
+        """run() with the LiDAR stage's projection and its npz write timed
+        where the converter calls them; the rest of the stage is the
+        range images' and projections' decode."""
+        recs = [CallRecorder(waymo_converter.wp.project_to_pointcloud, [waymo_converter.wp]),
+                CallRecorder(np.savez_compressed, [waymo_converter.np])]
+        try:
+            out = run()
+        finally:
+            for rec in recs:
+                rec.restore()
+        out["lidar_split_s"] = {"project_to_pointcloud": recs[0].seconds, "savez_compressed": recs[1].seconds,
+                                "calls": len(recs[0].calls)}
+        return out
+
+    stats = lidar_split(lambda: waymo_converter.parse_seq_rawdata(waymo_converter.PROCESS_LIST, seg, conv,
+                                                                   device=dev))
+    torch.cuda.synchronize()
+    sec.update({f"convert_{k}": v for k, v in stats["seconds"].items()})
+    convert_s = sum(stats["seconds"].values())
+    res["converter_frames_per_s"] = stats["frames"] / convert_s
+    res["points_per_frame"] = stats["points_per_frame"]
+    sec["lidar_depth"] = generate_lidar_depth.generate_lidar_depth(conv, device=dev)["seconds"]
+    torch.cuda.synchronize()
+    sec["sky_mask"] = generate_sky_mask.generate_sky_masks(conv)["seconds"]
+    images = sorted(os.listdir(os.path.join(conv, "images")))
+    if len(images) != 5 * PREP_FRAMES or stats["frames"] != PREP_FRAMES:
+        raise AssertionError(f"prep: {stats['frames']} frames, {len(images)} images")
+    sky = [float((imread(os.path.join(conv, "sky_mask", n), unchanged=True) > 0).mean()) for n in images[:5]]
+    if not all(0.02 < s < 0.9 for s in sky[:3]):
+        raise AssertionError(f"prep: the sky masks of the first frame's front cameras cover {sky}")
+    res["sky_fraction_frame0"] = sky
+    log(f"[prep] wrote {PREP_FRAMES} frames ({res['tfrecord_mib']:.1f} MiB) in {sec['write_tfrecord']:.2f} s; "
+        f"converted in {convert_s:.2f} s ({res['converter_frames_per_s']:.3f} frames/s; stages "
+        f"{json.dumps(stats['seconds'])}); {res['points_per_frame']} LiDAR points a frame; LiDAR depth "
+        f"{sec['lidar_depth']:.2f} s, sky masks {sec['sky_mask']:.2f} s (sky share of frame 0's views {sky})")
+
+    # ---- 14c. the LiDAR passes again on the CPU ----
+    t0 = time.perf_counter()
+    cpu_stats = lidar_split(lambda: waymo_converter.parse_seq_rawdata(["pose", "calib", "lidar", "track"], seg,
+                                                                       conv_cpu, device="cpu"))
+    res["lidar_split_s"] = {"card": stats["lidar_split_s"], "cpu": cpu_stats["lidar_split_s"]}
+    sec["cpu_convert_lidar"] = cpu_stats["seconds"]["lidar"]
+    os.rmdir(os.path.join(conv_cpu, "images"))  # made empty by the pose / calib stage
+    os.symlink(os.path.join(conv, "images"), os.path.join(conv_cpu, "images"))
+    sec["cpu_lidar_depth"] = generate_lidar_depth.generate_lidar_depth(conv_cpu, device="cpu")["seconds"]
+    texts = [os.path.join(d, n) for d in ("ego_pose", "intrinsics", "extrinsics", "track")
+             for n in sorted(os.listdir(os.path.join(conv, d)))] + ["timestamps.json"]
+    for rel in texts:
+        with open(os.path.join(conv, rel), "rb") as f, open(os.path.join(conv_cpu, rel), "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"prep: {rel} differs between the card's and the CPU's conversion")
+    a, b = (np.load(os.path.join(d, "pointcloud.npz"), allow_pickle=True) for d in (conv, conv_cpu))
+    pa, pb = a["pointcloud"].item(), b["pointcloud"].item()
+    ulps = max(f32_ulps(pa[f], pb[f]) for f in pa)
+    diff_points = sum(int((pa[f] != pb[f]).any(axis=1).sum()) for f in pa)
+    if ulps > 1 or any(not np.array_equal(a["camera_projection"].item()[f], b["camera_projection"].item()[f])
+                       for f in pa):
+        raise AssertionError(f"prep: card LiDAR points {ulps} ULP from the CPU's, or the projections differ")
+    depth_err = 0.0
+    for n in sorted(os.listdir(os.path.join(conv, "lidar_depth"))):
+        x, y = (np.load(os.path.join(d, "lidar_depth", n), allow_pickle=True).item() for d in (conv, conv_cpu))
+        if not np.array_equal(x["mask"], y["mask"]):
+            raise AssertionError(f"prep: depth mask {n} differs between the card and the CPU")
+        depth_err = max(depth_err, float(np.abs(x["value"].astype(np.float64) - y["value"]).max(initial=0)))
+    res["card_vs_cpu"] = {"points_max_ulp": ulps, "points_differing": diff_points, "depth_max_abs_err": depth_err,
+                          "text_files_equal": len(texts)}
+    log(f"[prep] card against CPU: points within {ulps} ULP ({diff_points} of {sum(len(v) for v in pa.values())} "
+        f"differ), camera projections, {len(texts)} text files and {len(images)} depth masks equal, depth values "
+        f"within {depth_err:.3g} m; LiDAR conversion {stats['seconds']['lidar']:.2f} s on the card against "
+        f"{sec['cpu_convert_lidar']:.2f} s on the CPU (of which {json.dumps(res['lidar_split_s'])}), depth maps "
+        f"{sec['lidar_depth']:.2f} s against "
+        f"{sec['cpu_lidar_depth']:.2f} s ({time.perf_counter() - t0:.1f} s)")
+    del a, b, pa, pb
+
+    # ---- 14d. train with the viewer attached ----
+    here = os.path.dirname(os.path.abspath(__file__))
+    recipe = os.path.join(here, "configs", "example", "waymo_train_002.yaml")
+    out = os.path.join(tmp, "prep_out")
+    opts = ["source_path", conv, "model_path", out, "data.selected_frames", f"[0, {PREP_FRAMES - 1}]",
+            "data.use_tracker", "false", "train.iterations", str(PREP_ITERS), "train.test_iterations", "[]",
+            "train.save_iterations", "[]", "train.checkpoint_iterations", "[]",
+            "optim.densify_from_iter", str(PREP_DENSIFY[0]), "optim.densification_interval", str(PREP_DENSIFY[1]),
+            "optim.densify_until_iter", str(10 * PREP_ITERS), "viewer.enabled", "true", "viewer.port", "0"]
+    # the capacity from the demand (sum of tiles_touched) of every train
+    # view and of the viewer's 1920x1280 cameras, at the initial weights
+    t0 = time.perf_counter()
+    cfg = load_config(recipe, opts, "train")
+    np.random.seed(0)
+    scene = runner.build_scene(cfg, dev)
+    params = runner.build_initial_params(cfg, scene, dev)
+    vopts = runner.render_opts_from_cfg(cfg, "eval")
+    views = scene.train_views
+    msgs = [viewer_message(views[i].frame_input.cam, *PREP_VIEW, True, True) for i in range(PREP_VIEWS)]
+    viewer_frames = [viewer_frame_input(views[i].frame_input, camera_from_message(m, device=dev))
+                     for i, m in enumerate(msgs)]
+    with torch.no_grad():
+        demand = [int(screen_space(params, scene.aux_init, scene.table, scene.pose_data, f, runner.EVAL_STEP,
+                                   opts=vopts)[0].tiles_touched.sum()) for f in
+                  [v.frame_input for v in views] + viewer_frames]
+    cap = _round_up(2 * max(demand), 1 << 16)
+    cfg.render.instance_capacity = cap
+    vopts = runner.render_opts_from_cfg(cfg, "eval")
+    sec["capacity_probe"] = time.perf_counter() - t0
+    log(f"[prep] {len(views)} train views at {views[0].W}x{views[0].H}, {scene.table.capacity} rows; demand "
+        f"{max(demand[:len(views)])} (train views) and {max(demand[len(views):])} (the viewer's 1920x1280 "
+        f"views): instance capacity {cap} ({sec['capacity_probe']:.1f} s)")
+    del scene, params, viewer_frames
+    torch.cuda.empty_cache()
+
+    served, ports, last = {"frames": [], "ms": [], "error": None}, [], {}
+    init, poll = runner.ViewerBridge.__init__, runner.ViewerBridge.poll
+
+    def recording_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        ports.append(self.gui.port)
+
+    def recording_poll(self, state, view, *args, **kwargs):
+        last.update(bridge=self, state=state, view=view)  # the newest only
+        return poll(self, state, view, *args, **kwargs)
+
+    log_path = os.path.join(out, "record", "train_log.jsonl")
+
+    def client():
+        try:
+            deadline = time.perf_counter() + 600
+            while not ports or not _log_reached(log_path, PREP_VIEWER_AFTER):
+                if time.perf_counter() > deadline:
+                    raise TimeoutError("training never reached the viewer's iteration")
+                time.sleep(0.002)
+            with socket_connect(ports[0]) as c:
+                for m in msgs:
+                    t = time.perf_counter()
+                    viewer_send(c, m)
+                    img, verify = viewer_frame(c, *PREP_VIEW)
+                    served["ms"].append((time.perf_counter() - t) * 1e3)
+                    served["frames"].append((len(img), verify, float(np.frombuffer(img, np.uint8).mean())))
+        except Exception as exc:  # reported by the main thread
+            served["error"] = repr(exc)
+
+    # the kernels' inputs in the step of the last iteration, for the check
+    # against their plain versions (as step 8e)
+    krecs, make_step = {}, runner.make_train_step
+    runner.ViewerBridge.__init__, runner.ViewerBridge.poll = recording_init, recording_poll
+    runner.make_train_step = recording_make_step(make_step, PREP_ITERS - 1, krecs)
+    thread = threading.Thread(target=client, daemon=True)
+    try:
+        thread.start()
+        _zero_counts()
+        t0 = time.perf_counter()
+        final = train_cli.main(["--config", recipe, "--device", dev.type, *opts,
+                                "render.instance_capacity", str(cap)])
+        torch.cuda.synchronize()
+        sec["train"] = time.perf_counter() - t0
+        res["train_launches"] = _launch_counts()
+        thread.join(60)
+    finally:
+        runner.ViewerBridge.__init__, runner.ViewerBridge.poll = init, poll
+        runner.make_train_step = make_step
+    if thread.is_alive() or served["error"]:
+        raise AssertionError(f"prep: the viewer client failed: {served['error'] or 'still running'}")
+    v = final["viewer"]
+    bad = [f for f in served["frames"] if f[0] != PREP_VIEW[0] * PREP_VIEW[1] * 3 or f[1] != conv]
+    if len(served["frames"]) != PREP_VIEWS or bad or v["frames"] != PREP_VIEWS or v["disconnects"] != 1:
+        raise AssertionError(f"prep: viewer frames {served['frames']}, bridge {v}")
+    dropped_at = v["events"][-1][0]
+    if v["events"][-1][1] != "disconnected" or not dropped_at < PREP_ITERS or final["iterations"] != PREP_ITERS:
+        raise AssertionError(f"prep: viewer events {v['events']}, training reached {final['iterations']}")
+    with open(log_path) as f:
+        recs = [json.loads(line) for line in f]
+    steps = [r for r in recs if "loss" in r]
+    if [r["iteration"] for r in steps] != list(range(10, PREP_ITERS + 1, 10)) or any(r.get("event") for r in recs):
+        raise AssertionError(f"prep: log records {[r.get('iteration') for r in recs]}")
+    if not all(math.isfinite(x) for r in recs for x in r.values() if isinstance(x, (int, float))):
+        raise AssertionError("prep: a non-finite record")
+    if any(r["overflow"] != 0 for r in steps) or final["growth"]:
+        raise AssertionError(f"prep: instances dropped {[r['overflow'] for r in steps]}, growth {final['growth']}")
+    if any(n == 0 for n in res["train_launches"].values()):
+        raise AssertionError(f"prep: a main-path kernel was not launched in training: {res['train_launches']}")
+    dens = [r for r in recs if "densify/points_total" in r]
+    if [r["iteration"] for r in dens] != [PREP_DENSIFY[1], 2 * PREP_DENSIFY[1]]:
+        raise AssertionError(f"prep: densify rounds {dens}")
+    res.update(train_windows=final["timing"]["windows"], viewer_round_trip_ms=served["ms"],
+               viewer_events=v["events"], losses=[r["loss"] for r in steps], num_alive=final["num_alive"],
+               densify=dens, train_timing={k: x for k, x in final["timing"].items() if k != "windows"})
+    log(f"[prep] train {PREP_ITERS} iterations in {sec['train']:.1f} s, losses {[round(x, 5) for x in res['losses']]}, "
+        f"no drop, densify {[(r['iteration'], r['densify/points_total']) for r in dens]}, launches "
+        f"{res['train_launches']}; viewer: {len(served['ms'])} frames at 1920x1280, round trips "
+        f"{[round(x, 2) for x in served['ms']]} ms, events {v['events']} ({smi})")
+    scene, state0, view = last["bridge"].scene, last["state"], last["view"]
+    del last
+    C = scene.table.capacity
+    errors = gate_step_checks(krecs, C, f"converted view {view.W}x{view.H}, step {PREP_ITERS}", renders=("full",))
+    krecs.clear()
+
+    # ---- 14e and 14f: one client asks for every frame the bridge serves ----
+    bridge = runner.ViewerBridge(cfg, scene)
+    serve_msgs = msgs * PREP_SERVE_ROUNDS
+    turn_msgs = [serve_msgs[i % len(msgs)] for i in range(PREP_TURN_STEPS * (PREP_TURNS + 1))]
+    got = {"frames": [], "error": None}
+
+    def asker():
+        try:
+            with socket_connect(bridge.gui.port) as c:
+                for i, m in enumerate(serve_msgs + turn_msgs):
+                    viewer_send(c, m)
+                    img, verify = viewer_frame(c, *PREP_VIEW)
+                    if len(img) != PREP_VIEW[0] * PREP_VIEW[1] * 3 or verify != conv:
+                        raise AssertionError(f"frame {i}: {len(img)} bytes, verify {verify!r}")
+                    got["frames"].append(img if i < len(msgs) else None)
+        except Exception as exc:  # reported by the main thread
+            got["error"] = repr(exc)
+
+    reader = threading.Thread(target=asker, daemon=True)
+    reader.start()
+    try:
+        deadline = time.perf_counter() + 60
+        while not bridge.gui.try_connect():
+            if time.perf_counter() > deadline or got["error"]:
+                raise AssertionError(f"prep: the viewer client never connected: {got['error']}")
+            time.sleep(0.002)
+        # ---- 14e. the bridge on the trained state, against a direct render ----
+        serve_ms, vrecs = [], {}
+        _zero_counts()
+        for i in range(len(serve_msgs)):
+            if i == 0:
+                vrecs.update(expand_runs=CallRecorder(fill.expand_runs, [fill]),
+                             forward=CallRecorder(tile_raster2._forward, [tile_raster2]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                if not bridge.poll(state0, view, training_done=False, iteration=PREP_ITERS):
+                    raise AssertionError(f"prep: the bridge served no frame for view {i}")
+            finally:
+                for rec in vrecs.values():
+                    rec.restore()
+            serve_ms.append((time.perf_counter() - t0) * 1e3)
+        res["viewer_launches"] = _launch_counts()
+        if (res["viewer_launches"]["tile_blend_instances"] != len(serve_msgs)
+                or res["viewer_launches"]["expand_runs"] < len(serve_msgs)):
+            raise AssertionError(f"prep: {len(serve_msgs)} viewer renders made launches {res['viewer_launches']}")
+        for k, e in gate_step_checks(vrecs, C, f"viewer {PREP_VIEW[1]}x{PREP_VIEW[0]}", renders=("full",)).items():
+            errors[k] = max(errors.get(k, 0.0), e)
+        vrecs.clear()
+        res["bridge_serve_ms"] = serve_ms
+
+        # ---- 14f. train steps with a frame served after each and without, in turns ----
+        step_fn = runner.make_train_step(cfg, scene.table, scene.pose_data, runner.render_opts_from_cfg(cfg, "train"))
+        tviews = scene.train_views[:3]
+        gts = [load_ground_truth(tv, device=dev) for tv in tviews]
+
+        def window(with_viewer: bool) -> float:
+            """ms/step over PREP_TURN_STEPS steps from the trained state."""
+            st, gen = state0, torch.Generator(device=dev).manual_seed(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(PREP_TURN_STEPS):
+                tv = tviews[i % len(tviews)]
+                st, scalars = step_fn(st, tv.frame_input, gts[i % len(tviews)], gen)
+                if with_viewer and not bridge.poll(st, tv, training_done=False, iteration=i):
+                    raise AssertionError("prep: the bridge served no frame in a viewer window")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / PREP_TURN_STEPS
+            if not math.isfinite(float(scalars["loss"])) or float(scalars["overflow_instance"]) != 0:
+                raise AssertionError(f"prep: a turn window's last step: {scalars}")
+            return ms
+
+        window(True)  # warm-up, not counted: the allocator's first steps at this scene
+        window(False)
+        turns = {"without": [], "with": []}
+        for t in range(PREP_TURNS):
+            for with_viewer in ((False, True) if t % 2 == 0 else (True, False)):
+                turns["with" if with_viewer else "without"].append(window(with_viewer))
+        reader.join(120)
+        if reader.is_alive() or got["error"]:
+            raise AssertionError(f"prep: the viewer client failed: {got['error'] or 'still running'}")
+    finally:
+        bridge.close()
+    with torch.no_grad():
+        for i, m in enumerate(msgs):
+            direct = render_frame(state0.params, state0.aux, scene.table, scene.pose_data,
+                                  viewer_frame_input(view.frame_input, camera_from_message(m, device=dev)),
+                                  runner.EVAL_STEP, opts=vopts)
+            if int(direct["overflow"]) != 0:
+                raise AssertionError(f"prep: viewer view {i} dropped {int(direct['overflow'])} instances")
+            want = (np.clip(direct["rgb"].cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+            if got["frames"][i] != want.tobytes():
+                raise AssertionError(f"prep: the bridge's bytes of view {i} differ from the direct render's")
+    med = {k: float(np.median(x)) for k, x in turns.items()}
+    res["errors"] = errors
+    res["viewer"] = {
+        "serve_ms_median": float(np.median(serve_ms)), "serve_ms_range": [min(serve_ms), max(serve_ms)],
+        "ms_per_step_turns": turns, "ms_per_step_median": med,
+        "ms_per_step_range": {k: [min(x), max(x)] for k, x in turns.items()},
+        "viewer_ms_per_step": med["with"] - med["without"], "steps_per_window": PREP_TURN_STEPS}
+    sec["phase"] = time.perf_counter() - t_phase
+    log(f"[prep] the bridge on the trained state: {len(msgs)} views at 1920x1280 bytes equal to direct renders; "
+        f"{len(serve_ms)} served in {[round(x, 2) for x in serve_ms]} ms (median {res['viewer']['serve_ms_median']:.2f}), "
+        f"launches {res['viewer_launches']}; {PREP_TURNS} turns of {PREP_TURN_STEPS} steps from the trained state, "
+        f"ms/step without the viewer {[round(x, 2) for x in turns['without']]}, with a frame served after each step "
+        f"{[round(x, 2) for x in turns['with']]} (medians {med['without']:.2f} and {med['with']:.2f}); step 14 in "
+        f"{sec['phase']:.1f} s ({smi})")
+    del state0, bridge, scene
+    return res
+
+
+def viewer_frame_input(tpl, cam):
+    """The template view's frame input with the viewer's camera, the
+    template's frame, timestamp and ids (as runner.ViewerBridge.poll)."""
+    import dataclasses
+
+    cam = dataclasses.replace(cam, frame=tpl.cam.frame, timestamp=tpl.cam.timestamp, cam_id=tpl.cam.cam_id,
+                              image_id=tpl.cam.image_id)
+    return dataclasses.replace(tpl, cam=cam)
+
+
+def socket_connect(port: int):
+    import socket
+
+    return socket.create_connection(("127.0.0.1", port), timeout=120)
+
+
+def _log_reached(path: str, iteration: int) -> bool:
+    try:
+        with open(path) as f:
+            return any(json.loads(line).get("iteration", 0) >= iteration for line in f if line.endswith("\n"))
+    except FileNotFoundError:
+        return False
 
 
 if __name__ == "__main__":

@@ -36,14 +36,20 @@ object acc) to model_path/log_images/<iteration>.png; the JAX package
 writes the same grid as <iteration>.jpg through cv2, so the two differ in
 file format only.
 
-Not ported (raises NotImplementedError where a config asks for it): the
-viewer bridge (ROADMAP.md queue 1, item 5).
+With viewer.enabled, `ViewerBridge` (network_gui.py, the SIBR viewer
+protocol) listens on viewer.ip:viewer.port (port 0: a free one, printed)
+and, every iteration, serves a connected viewer's requested camera
+rendered with the current parameters; a 'train' request hands control
+back to training, and a viewer that drops is disconnected and training
+goes on (the JAX runner's ViewerBridge). The writer (rank 0) alone
+listens.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import functools
 import json
 import os
@@ -83,10 +89,6 @@ from street_gaussians_torch.utils.lpips import lpips as lpips_fn
 from street_gaussians_torch.visualize import Visualizer, save_image, visualize_depth
 
 EVAL_STEP = 10**9  # SH degree fully active
-
-
-def _not_ported(what: str, item):
-    raise NotImplementedError(f"{what} is not ported to street_gaussians_torch yet (ROADMAP.md queue 1, item {item})")
 
 
 def build_scene(cfg: Config, device=None) -> Scene:
@@ -265,6 +267,80 @@ def make_eval_render(cfg: Config, scene: Scene, include_mask=None):
     return eval_render
 
 
+class ViewerBridge:
+    """SIBR remote-viewer loop hook (the wiring the reference leaves
+    dormant — lib/models/network_gui.py is imported nowhere there; port of
+    street_gaussians_tpu/runner.py:266-331).
+
+    Enable with `viewer.enabled true` on the train CLI. Each training
+    iteration polls the non-blocking listener; while a viewer is
+    connected, renders its requested free camera with the CURRENT
+    parameters (eval options, step 10^9, the template view's frame,
+    timestamp and ids) and streams raw uint8 RGB bytes back. `frames`,
+    `disconnects` and `events` (iteration, what) count what it served."""
+
+    def __init__(self, cfg: Config, scene: Scene):
+        from street_gaussians_torch.network_gui import NetworkGUI
+
+        self.cfg = cfg
+        self.scene = scene
+        self.device = scene.table.start_frame.device
+        self.opts = render_opts_from_cfg(cfg, "eval")
+        self.gui = NetworkGUI(cfg.viewer.ip, int(cfg.viewer.port))
+        self.frames, self.disconnects, self.events = 0, 0, []
+        print(f"[viewer] listening on {cfg.viewer.ip}:{self.gui.port}", flush=True)
+
+    @torch.no_grad()
+    def render(self, params: SceneParams, aux, frame_inp) -> torch.Tensor:
+        """The rgb [H, W, 3] the viewer is sent (before the uint8 cast)."""
+        return render_frame(params, aux, self.scene.table, self.scene.pose_data, frame_inp, EVAL_STEP,
+                            opts=self.opts)["rgb"]
+
+    def poll(self, state: TrainState, template_view: CameraView, training_done: bool, iteration=None) -> bool:
+        """Serve the viewer until it asks to train (and iterations remain,
+        or it does not keep the connection alive) or drops. Returns True
+        when a frame was sent."""
+        gui = self.gui
+        served = False
+        if gui.conn is None and gui.try_connect():
+            self.events.append((iteration, "connected"))
+        while gui.conn is not None:
+            try:
+                cam, do_training, keep_alive, scaling_mod = gui.receive(device=self.device)
+                if cam is not None:
+                    tpl = template_view.frame_input
+                    cam = dataclasses.replace(
+                        cam,
+                        frame=tpl.cam.frame,
+                        timestamp=tpl.cam.timestamp,
+                        cam_id=tpl.cam.cam_id,
+                        image_id=tpl.cam.image_id,
+                    )
+                    rgb = self.render(state.params, state.aux, dataclasses.replace(tpl, cam=cam))
+                    gui.send_image(rgb, self.cfg.source_path)
+                    self.frames += 1
+                    served = True
+                    self.events.append((iteration, f"frame {cam.W}x{cam.H}"))
+                else:
+                    gui.send(None, self.cfg.source_path)
+                # a 'train' request yields back to the training loop
+                # while iterations remain (upstream 3DGS loop semantics)
+                if do_training and (not training_done or not keep_alive):
+                    break
+            except Exception:
+                gui.disconnect()
+                self.disconnects += 1
+                self.events.append((iteration, "disconnected"))
+        return served
+
+    def stats(self) -> dict:
+        return {"port": self.gui.port, "frames": self.frames, "disconnects": self.disconnects,
+                "events": list(self.events)}
+
+    def close(self) -> None:
+        self.gui.close()
+
+
 def save_scene_artifacts(cfg: Config, scene: Scene) -> None:
     """input.ply + cameras.json for SIBR-style viewers
     (ref: lib/datasets/dataset.py:32-48, camera_utils.py:172-192)."""
@@ -316,8 +392,6 @@ class _Plan:
 
     def __init__(self, cfg: Config, group=None):
         t = cfg.train
-        if cfg.get("viewer", {}).get("enabled"):
-            _not_ported("viewer.enabled (the SIBR viewer bridge)", 5)
         B = int(t.get("batch_size", 1) or 1)
         D = int(t.get("tile_shards", 0) or 0)
         Gs = int(t.get("gauss_shards", 0) or 0)
@@ -536,7 +610,8 @@ def training(cfg: Config, progress: bool = True, device=None, group=None) -> Dic
     rank 0 alone writes. Returns the final metrics (ema_psnr, ema_loss,
     num_alive, param_checksum) and, beside them, `timing` (seconds per
     stage, and ms/step over each 10-iteration window), the watchdog's
-    `growth` events and the ground-truth cache's bytes."""
+    `growth` events, the ground-truth cache's bytes and, with
+    viewer.enabled, the bridge's `viewer` stats (ViewerBridge.stats)."""
     device = group.device if group is not None else resolve_device(device)
     plan = _Plan(cfg, group)
     is_writer = group is None or group.rank == 0
@@ -616,10 +691,17 @@ def training(cfg: Config, progress: bool = True, device=None, group=None) -> Dic
     t_start = time.time()
     scalars, values = {}, {}
     watchdog = _Watchdog(cfg)
+    viewer = None
+    if cfg.get("viewer", {}).get("enabled") and is_writer:
+        if shards.group is not None:
+            raise NotImplementedError(
+                "viewer.enabled with train.gauss_shards over ranks: the viewer renders the whole table on rank "
+                "0, which holds only its row block; train the row blocks in one process or without the viewer")
+        viewer = ViewerBridge(cfg, scene)
     # ms/step over each 10-iteration window, between the host syncs that
     # read the scalars; a window is marked with what else ran in it (a
-    # ground-truth read, a densify round; an eval, save or growth just
-    # before it)
+    # ground-truth read, a densify round, a frame served to the viewer;
+    # an eval, save or growth just before it)
     windows, t_window, marks = [], time.perf_counter(), set()
     try:
         for iteration in range(start_iter + 1, iters + 1):
@@ -630,6 +712,10 @@ def training(cfg: Config, progress: bool = True, device=None, group=None) -> Dic
                 marks.add("ground_truth")
 
             state, scalars = step_fn(state, view.frame_input, gt, generator)
+
+            if viewer is not None and viewer.poll(state, view, training_done=iteration >= iters,
+                                                  iteration=iteration):
+                marks.add("viewer")
 
             state, ddiag = densify_cadence(cfg, state, iteration, densify_fn, reset_fn, generator)
             if ddiag is not None:
@@ -719,6 +805,8 @@ def training(cfg: Config, progress: bool = True, device=None, group=None) -> Dic
         log_f.close()
         if tb is not None:
             tb.close()
+        if viewer is not None:
+            viewer.close()
     sync()
     final = {"ema_psnr": ema_psnr, "ema_loss": ema_loss}
     if scalars:
@@ -730,6 +818,8 @@ def training(cfg: Config, progress: bool = True, device=None, group=None) -> Dic
                   windows=windows)
     final.update(timing=timing, growth=watchdog.events, gt_cache_bytes=gt_cache.nbytes,
                  gt_cache_views=len(gt_cache.cache), start_iteration=start_iter, iterations=iters)
+    if viewer is not None:
+        final["viewer"] = viewer.stats()
     return final
 
 

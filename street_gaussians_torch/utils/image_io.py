@@ -2,12 +2,16 @@
 
 Takes the place of the cv2 calls of the JAX package's loaders
 (street_gaussians_tpu/data/dataset.py, data/waymo.py, data/static_readers.py,
-data/synthetic_waymo.py and utils/box.py), with the same results:
+data/synthetic_waymo.py and utils/box.py) and of the repo's root
+data-preparation scripts (script/waymo/, script/kitti/), with the same
+results:
 
-* imread / imwrite: 8-bit PNG (gray, gray + alpha, RGB, RGBA, not
-  interlaced) decoded and encoded with zlib, in cv2's BGR channel order.
-  Other formats (the JPEGs of a Colmap scene) go through cv2, imported
-  when such a file is read, so they need OpenCV installed.
+* imread / imwrite / imdecode: 8-bit PNG (gray, gray + alpha, RGB,
+  RGBA, not interlaced) decoded and encoded with zlib, in cv2's BGR
+  channel order, from a file or (imdecode) from bytes in memory; image_size
+  reads a PNG's size off its header. Other formats (the JPEGs of a Colmap
+  scene or of a Waymo segment) go through cv2, imported when such an
+  image is read, so they need OpenCV installed.
 * resize_area: cv2.resize(..., INTER_AREA) for a shrink: each output
   pixel is the overlap-weighted mean of the source pixels its footprint
   covers (a block mean when both factors are integers), summed in
@@ -89,7 +93,21 @@ def _decode_png(path: str) -> np.ndarray:
     """The stored samples, [H, W, channels] uint8 in the file's order
     (gray, gray + alpha, RGB or RGBA)."""
     with open(path, "rb") as f:
-        data = f.read()
+        return _decode_png_bytes(f.read(), path)
+
+
+def _png_header(data: bytes, path: str):
+    """IHDR of a PNG: (W, H, depth, colour type, compression, filter,
+    interlace)."""
+    if data[:8] != _PNG_SIG:
+        raise ValueError(f"{path}: not a PNG file")
+    if data[12:16] != b"IHDR":
+        raise ValueError(f"{path}: PNG without an IHDR chunk first")
+    return struct.unpack(">IIBBBBB", data[16:29])
+
+
+def _decode_png_bytes(data: bytes, path: str) -> np.ndarray:
+    """_decode_png of a PNG's bytes; `path` names them in errors."""
     if data[:8] != _PNG_SIG:
         raise ValueError(f"{path}: not a PNG file")
     pos, header, idat = 8, None, []
@@ -136,7 +154,12 @@ def imread(path: str, unchanged: bool = False) -> np.ndarray:
         if img is None:
             raise ValueError(f"{path}: cv2 could not read the image")
         return img
-    px = _decode_png(path)
+    return _to_bgr(_decode_png(path), unchanged)
+
+
+def _to_bgr(px: np.ndarray, unchanged: bool) -> np.ndarray:
+    """Decoded PNG samples in cv2's layout: IMREAD_COLOR (BGR; gray
+    replicated, alpha dropped) or, with unchanged, IMREAD_UNCHANGED."""
     c = px.shape[-1]
     if c == 1:
         return px[..., 0] if unchanged else np.repeat(px, 3, axis=-1)
@@ -149,6 +172,33 @@ def imread(path: str, unchanged: bool = False) -> np.ndarray:
     return np.ascontiguousarray(np.concatenate([bgr, px[..., 3:]], axis=-1) if unchanged else bgr)
 
 
+def imdecode(buf: bytes, what: str = "image bytes") -> np.ndarray:
+    """cv2.imdecode(np.frombuffer(buf, uint8), IMREAD_COLOR): uint8 [H, W,
+    3] BGR. PNG bytes are decoded here, in memory; any other format (the
+    JPEG frames of a Waymo segment) goes to cv2, imported then."""
+    if bytes(buf[:8]) != _PNG_SIG:
+        try:
+            import cv2
+        except ImportError as e:
+            raise ImportError(f"{what}: decoding an image that is not a PNG needs OpenCV (cv2)") from e
+        img = cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_COLOR)
+        if img is None:
+            raise ValueError(f"{what}: cv2 could not decode the image")
+        return img
+    return _to_bgr(_decode_png_bytes(bytes(buf), what), unchanged=False)
+
+
+def image_size(path: str):
+    """(H, W) of an image file: a PNG's from its header, without decoding
+    it; another format's from cv2.imread (imported then)."""
+    with open(path, "rb") as f:
+        head = f.read(29)
+    if head[:8] == _PNG_SIG:
+        W, H = _png_header(head, path)[:2]
+        return int(H), int(W)
+    return imread(path).shape[:2]
+
+
 def _chunk(kind: bytes, body: bytes) -> bytes:
     return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
@@ -156,24 +206,28 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 def imwrite(path: str, img: np.ndarray) -> None:
     """cv2.imwrite for PNG: uint8 [H, W] (gray) or [H, W, 3] (BGR); every
     row with filter 1 (Sub), zlib level 1."""
+    data = png_bytes(img)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def png_bytes(img: np.ndarray) -> bytes:
+    """The bytes imwrite writes for img (cv2.imencode(".png", img))."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
-        raise ValueError(f"imwrite: uint8 images only, got {img.dtype}")
+        raise ValueError(f"png_bytes: uint8 images only, got {img.dtype}")
     if img.ndim == 2:
         img = img[..., None]
     H, W, c = img.shape
     if c not in (1, 3):
-        raise ValueError(f"imwrite: {c} channels (1 or 3)")
+        raise ValueError(f"png_bytes: {c} channels (1 or 3)")
     px, ctype = (img[..., ::-1], 2) if c == 3 else (img, 0)
     rows = np.ascontiguousarray(px).reshape(H, W * c)
     sub = rows.copy()
     sub[:, c:] = rows[:, c:] - rows[:, :-c]  # uint8 arithmetic wraps mod 256
     raw = np.concatenate([np.ones((H, 1), np.uint8), sub], axis=1)
-    with open(path, "wb") as f:
-        f.write(_PNG_SIG)
-        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, ctype, 0, 0, 0)))
-        f.write(_chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)))
-        f.write(_chunk(b"IEND", b""))
+    return b"".join([_PNG_SIG, _chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, ctype, 0, 0, 0)),
+                     _chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)), _chunk(b"IEND", b"")])
 
 
 # ---------------------------------------------------------------- resizing

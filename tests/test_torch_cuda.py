@@ -606,3 +606,63 @@ def test_tile_path_matches_the_oracle(cuda_device):
     disagreement)."""
     res = oracle_phase(cuda_device, H=48, W=64, n=300)
     assert res["launches"]["tile_blend_instances"] == 5 and res["launches"]["tile_blend_bwd"] == 1
+
+
+def _top_laser_frame():
+    """A frame of data.synthetic_tfrecord with Waymo's TOP laser (64 x
+    2650, explicit beams) and a side laser (200 x 600, a range), toy
+    cameras."""
+    from street_gaussians_torch.data import synthetic_tfrecord as st
+    from street_gaussians_torch.data import waymo_proto as wp
+
+    sizes = {n: (48, 72) for n in range(1, 6)}
+    return wp.Frame(st.encode_frame(0, sizes, {1: (64, 2650), 2: (200, 600)}, [])), wp
+
+
+@pytest.mark.cuda
+def test_project_to_pointcloud_on_the_card_matches_cpu(cuda_device):
+    """The range-image projection in float64 on the card against the CPU
+    device: the float32 points within 1 ULP (chip_smoke step 14's rule),
+    the attributes equal."""
+    from chip_smoke import f32_ulps
+
+    frame, wp = _top_laser_frame()
+    for laser in frame.lasers:
+        ri = laser.ri_return1.range_image()
+        calib = wp.get_by_name(frame.laser_calibrations, laser.name)
+        got, attrs = wp.project_to_pointcloud(frame, ri, calib, device=cuda_device)
+        want, want_attrs = wp.project_to_pointcloud(frame, ri, calib, device="cpu")
+        assert got.shape == want.shape and got.shape[0] > 0
+        assert f32_ulps(got.astype(np.float32), want.astype(np.float32)) <= 1
+        np.testing.assert_array_equal(attrs, want_attrs)
+
+
+@pytest.mark.cuda
+def test_lidar_depth_on_the_card_matches_cpu(cuda_device):
+    """generate_lidar_depth.depth_map (float64 depths, scatter-min) of the
+    TOP laser's points into a 1280 x 1920 image on the card and on the
+    CPU: masks equal, values within 1 float32 ULP."""
+    from chip_smoke import f32_ulps
+    from street_gaussians_torch.data import synthetic_tfrecord as st
+    from street_gaussians_torch.script.waymo.generate_lidar_depth import depth_map
+
+    frame, wp = _top_laser_frame()
+    laser = next(x for x in frame.lasers if x.name == 1)
+    ri = laser.ri_return1.range_image()
+    pts, _ = wp.project_to_pointcloud(frame, ri, wp.get_by_name(frame.laser_calibrations, 1), device="cpu")
+    pts = pts.astype(np.float32)
+    intr, ext = st.camera_calibration(1, 1280, 1920)
+    opencv = np.array([[0.0, 0.0, 1.0, 0.0], [-1.0, 0.0, 0.0, 0.0], [0.0, -1.0, 0.0, 0.0], [0.0, 0.0, 0.0, 1.0]])
+    w2c = np.linalg.inv(ext @ opencv)
+    cam = pts.astype(np.float64) @ w2c[:3, :3].T + w2c[:3, 3]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        uv = np.stack([intr[0] * cam[:, 0] / cam[:, 2] + intr[2], intr[1] * cam[:, 1] / cam[:, 2] + intr[3]], -1)
+    keep = (cam[:, 2] > 0) & (uv[:, 0] >= 0) & (uv[:, 0] < 1920) & (uv[:, 1] >= 0) & (uv[:, 1] < 1280)
+    coords = uv[keep].astype(np.int32)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        out[dev.type] = depth_map(torch.as_tensor(pts[keep], device=dev), coords, w2c, 1280, 1920)
+    (mg, vg), (mc, vc) = out["cuda"], out["cpu"]
+    assert mg.sum() > 1000
+    np.testing.assert_array_equal(mg, mc)
+    assert f32_ulps(vg, vc) <= 1

@@ -124,6 +124,29 @@ def test_non_png_goes_through_cv2(tmp_path):
     np.testing.assert_array_equal(image_io.imread(path), cv2.imread(path))
 
 
+@pytest.mark.parametrize("channels", [1, 3, 4, "jpg"])
+def test_imdecode_and_image_size_match_cv2(tmp_path, channels):
+    """imdecode of PNG bytes (gray, BGR, BGRA as cv2 encodes them; decoded
+    here) and of JPEG bytes (through cv2) equals cv2.imdecode(...,
+    IMREAD_COLOR); image_size reads the PNG's size off its header, the
+    JPEG's through cv2; png_bytes is what imwrite writes."""
+    shape = (19, 27) if channels == 1 else (19, 27, 3 if channels == "jpg" else channels)
+    img = np.random.default_rng(7).integers(0, 256, shape, dtype=np.uint8)
+    ext = ".jpg" if channels == "jpg" else ".png"
+    ok, enc = cv2.imencode(ext, img)
+    buf = enc.tobytes()
+    np.testing.assert_array_equal(image_io.imdecode(buf), cv2.imdecode(enc, cv2.IMREAD_COLOR))
+    path = str(tmp_path / f"a{ext}")
+    with open(path, "wb") as f:
+        f.write(buf)
+    assert image_io.image_size(path) == (19, 27)
+    if channels in (1, 3):
+        image_io.imwrite(path, img)
+        with open(path, "rb") as f:
+            assert f.read() == image_io.png_bytes(img)
+        np.testing.assert_array_equal(image_io.imdecode(image_io.png_bytes(img)), cv2.imread(path))
+
+
 # ---------------------------------------------------------------- resizing
 
 

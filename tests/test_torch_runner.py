@@ -415,13 +415,14 @@ def test_non_finite_loss_fails_loudly(small_seq, tmp_path):
 
 
 def test_unported_branches_raise(small_seq, tmp_path):
-    """The viewer (item 5) is the one branch left unported; the
+    """No branch is left unported: the viewer (item 5) now trains with
+    viewer.enabled (tests/test_torch_viewer.py serves it), and the
     Gaussian-sharded and multi-host branches (item 6b) run
-    (tests/test_torch_parallel_gauss.py), and refuse a scene whose
-    capacity gauss_shards does not divide with the JAX runner's message."""
-    cfg = small_cfg(small_seq, str(tmp_path / "out"), 1, "viewer.enabled", "true")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        trunner.training(cfg, progress=False, device="cpu")
+    (tests/test_torch_parallel_gauss.py), refusing a scene whose capacity
+    gauss_shards does not divide with the JAX runner's message."""
+    cfg = small_cfg(small_seq, str(tmp_path / "out"), 1, "viewer.enabled", "true", "viewer.port", "0")
+    final = trunner.training(cfg, progress=False, device="cpu")
+    assert final["iterations"] == 1 and final["viewer"]["frames"] == 0 and final["viewer"]["port"] > 0
     cfg = small_cfg(small_seq, str(tmp_path / "out"), 1, "train.gauss_shards", "3")
     with pytest.raises(RuntimeError, match="not divisible by gauss_shards=3"):
         trunner.training(cfg, progress=False, device="cpu")
