@@ -1282,7 +1282,7 @@ def waymo_phase(dev, tmp: str) -> dict:
     # ---- 8g. profiles of two steps on each side of the gate ----
     from torch.profiler import ProfilerActivity, profile
 
-    from street_gaussians_torch.script import trace_stats
+    from street_gaussians_torch.utils import trace as trace_lib
 
     prof_steps = 2
     busy = {}
@@ -1299,12 +1299,11 @@ def waymo_phase(dev, tmp: str) -> dict:
             torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         prof.export_chrome_trace(trace)
-        summ = serve.trace_summary(trace, wall, prof_steps, ("object_render", "screen_space", "backward"))
+        summ = trace_lib.trace_summary(trace, wall, prof_steps, ("object_render", "screen_space", "backward"))
         summ["events_ms"] = [ev[k].elapsed_time(ev[k + 1]) for k in range(prof_steps)]
-        summ["stats"] = trace_stats.trace_stats(trace, prof_steps)  # busy ms, kernels, syncs a step
-        with open(trace) as f:
-            launched = [e for e in serve.device_events(json.load(f)["traceEvents"]) if e["cat"] == "kernel"]
-        summ["kernel_busy_ms"] = serve.busy_ms(launched) / prof_steps
+        summ["stats"] = trace_lib.trace_stats(trace, prof_steps)  # busy ms, kernels, syncs a step
+        launched = [e for e in trace_lib.device_events(trace_lib.load_events(trace)) if e["cat"] == "kernel"]
+        summ["kernel_busy_ms"] = trace_lib.busy_ms(launched) / prof_steps
         busy[side] = summ
         obj, stats = summ["per_view"]["object_render"], summ["stats"]
         log(f"[waymo] profiled {prof_steps} steps {side} the gate: wall {wall / prof_steps:.3f} ms/step, CUDA "

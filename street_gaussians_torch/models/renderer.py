@@ -34,7 +34,6 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from street_gaussians_torch.models import gaussians as G
 from street_gaussians_torch.models.actor_pose import (
@@ -62,6 +61,7 @@ from street_gaussians_torch.utils.quaternion import (
     quat_rotate,
     quat_to_rotmat,
 )
+from street_gaussians_torch.utils.trace import span
 
 
 # 180-degree rotation about the flip axis (y) as a quaternion
@@ -137,11 +137,12 @@ class RowsFromModels(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_rows):
         (mid,) = ctx.saved_tensors
-        if ctx.local is not None:
-            d_pm = torch.stack([d_rows[s:e].sum(dim=0) for s, e in ctx.local])
-        else:
-            models = torch.arange(ctx.num_models, device=mid.device)
-            d_pm = (mid[:, None] == models[None, :]).to(d_rows.dtype).t() @ d_rows
+        with span("rows_bwd"):
+            if ctx.local is not None:
+                d_pm = torch.stack([d_rows[s:e].sum(dim=0) for s, e in ctx.local])
+            else:
+                models = torch.arange(ctx.num_models, device=mid.device)
+                d_pm = (mid[:, None] == models[None, :]).to(d_rows.dtype).t() @ d_rows
         return d_pm, None, None, None
 
 
@@ -201,7 +202,8 @@ def compose_frame(
     in_range = (frame >= table.start_frame[mid]) & (frame <= table.end_frame[mid])
     visible = aux.alive & in_range
     if include_mask is not None:
-        inc = torch.as_tensor(include_mask, dtype=torch.bool, device=mid.device)
+        with span("sync/compose_constants"):  # a host mask is copied to the card
+            inc = torch.as_tensor(include_mask, dtype=torch.bool, device=mid.device)
         visible = visible & inc[mid]
 
     is_actor_row = (mid > 0) & (table.track_id[mid] >= 0)
@@ -212,12 +214,14 @@ def compose_frame(
             pose_data, params.actor_pose, frame_inp.interp,
             frame_inp.ego_quat, frame_inp.ego_rotmat, frame_inp.ego_trans,
         )
-        ident = torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=dev)
+        with span("sync/compose_constants"):
+            ident = torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=dev)
         zero3 = torch.zeros((1, 3), device=dev)
         obj_quat = torch.cat([ident, a_quat] + [ident] * n_sky, dim=0)  # [M, 4]
         obj_trans = torch.cat([zero3, a_trans] + [zero3] * n_sky, dim=0)
     else:
-        obj_quat = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev).expand(M, 4)
+        with span("sync/compose_constants"):
+            obj_quat = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev).expand(M, 4)
         obj_trans = torch.zeros((M, 3), device=dev)
 
     slices = [(int(a), int(b)) for a, b in table.slices]
@@ -226,9 +230,10 @@ def compose_frame(
 
     xyz_local, rot_local = g.xyz, g.rot
     if opts.mode == "train" and flip is not None:
-        mirror = torch.ones(3, device=dev)
-        mirror[FLIP_AXIS] = -1.0
-        fq = torch.tensor(FLIP_QUAT, device=dev)
+        with span("sync/compose_constants"):
+            mirror = torch.ones(3, device=dev)
+            mirror[FLIP_AXIS] = -1.0
+            fq = torch.tensor(FLIP_QUAT, device=dev)
         xyz_local = torch.where(flip[:, None], xyz_local * mirror, xyz_local)
         rot_local = torch.where(flip[:, None], quat_multiply(fq[None, :], rot_local), rot_local)
 
@@ -251,7 +256,8 @@ def compose_frame(
         # sky-as-Gaussians: project xyz to >= 2x the sphere radius and
         # clamp the scaling at the sphere radius
         is_sky = mid == table.sky_model
-        c = torch.as_tensor(table.sphere_center, device=dev)
+        with span("sync/compose_constants"):
+            c = torch.as_tensor(table.sphere_center, device=dev)
         d = torch.linalg.norm(means3d - c[None, :], dim=-1, keepdim=True)
         ratio = d / (2.0 * table.sphere_radius)
         xyz_sky = torch.where(
@@ -444,7 +450,7 @@ def render_frame(
     if screen_composed is not None:
         screen, composed = screen_composed
     else:
-        with record_function("screen_space"):
+        with span("screen_space"):
             screen, composed = screen_space(
                 params, aux, table, pose_data, frame_inp, step, opts, flip, mean2d_offset, include_mask
             )
@@ -474,7 +480,7 @@ def render_frame(
 
     if sky is not None:
         ds = opts.sky_downsample if not train else 1
-        with record_function("sky"):
+        with span("sky"):
             sky_rgb = render_sky(
                 sky, cam, downsample=ds, table=sky_table,
                 jitter=sky_jitter if train else None,

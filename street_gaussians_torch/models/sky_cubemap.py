@@ -25,6 +25,7 @@ from street_gaussians_torch._device import resolve_device
 from street_gaussians_torch.ops.segsum import segment_rowsum
 from street_gaussians_torch.utils.camera import Camera, camera_rays
 from street_gaussians_torch.utils.losses import jnp_clip
+from street_gaussians_torch.utils.trace import span as trace_span
 
 # texels per window-table row
 WINDOW = 16
@@ -85,15 +86,17 @@ def _combine_taps(tbl: torch.Tensor, base: torch.Tensor, e4: torch.Tensor) -> to
     j = (bflat % W)[:, None]
     ef = e4.reshape(-1, 4)
     lane = np.arange(3 * span)
-    kvec = torch.as_tensor((lane % span) % (W + 1), device=dev)[None, :]
-    lo = torch.as_tensor((lane % span) < W + 1, device=dev)[None, :]
+    with trace_span("sync/sky_constants"):  # numpy lane tables copied to the card
+        kvec = torch.as_tensor((lane % span) % (W + 1), device=dev)[None, :]
+        lo = torch.as_tensor((lane % span) < W + 1, device=dev)[None, :]
     w_hit = torch.where(lo, ef[:, 0:1], ef[:, 2:3])
     w_nxt = torch.where(lo, ef[:, 1:2], ef[:, 3:4])
     zero = torch.zeros((), dtype=ef.dtype, device=dev)
     Wimg = torch.where(kvec == j, w_hit, zero) + torch.where(kvec == j + 1, w_nxt, zero)
-    collapse = torch.as_tensor(
-        (lane[:, None] // span) == np.arange(3)[None, :], dtype=torch.float32, device=dev
-    )
+    with trace_span("sync/sky_constants"):
+        collapse = torch.as_tensor(
+            (lane[:, None] // span) == np.arange(3)[None, :], dtype=torch.float32, device=dev
+        )
     out = (rows * Wimg) @ collapse  # [P, 3]
     return out.reshape(*base.shape, 3)
 
@@ -133,7 +136,8 @@ class BilinearTaps(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_out):
         base, e4 = ctx.saved_tensors
-        return bilinear_taps_grad(d_out, base, e4, *ctx.dims), None, None, None
+        with trace_span("sky_bwd"):
+            return bilinear_taps_grad(d_out, base, e4, *ctx.dims), None, None, None
 
 
 def build_sky_table(cubemap: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,6 @@ import dataclasses
 from typing import Dict, NamedTuple, Optional, Union
 
 import torch
-from torch.profiler import record_function
 
 from street_gaussians_torch.ops import binning as binning_lib
 from street_gaussians_torch.ops.preprocess import TILE, GaussianScreenData
@@ -29,6 +28,7 @@ from street_gaussians_torch.ops.tile_raster2 import (
     TileBlendInstances,
     payload_rows,
 )
+from street_gaussians_torch.utils.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,7 +88,8 @@ class BuildPayloadBlocks(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_blocks):
         (inst_gauss,) = ctx.saved_tensors
-        return payload_grad(d_blocks, inst_gauss, ctx.n), None
+        with span("payload_bwd"):
+            return payload_grad(d_blocks, inst_gauss, ctx.n), None
 
 
 def build_payload_blocks(src: torch.Tensor, inst_gauss: torch.Tensor) -> torch.Tensor:
@@ -109,7 +110,8 @@ class BuildPayloadTable(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_table):
         (tile_gauss,) = ctx.saved_tensors
-        return payload_grad(d_table, tile_gauss.reshape(-1), ctx.n), None
+        with span("payload_bwd"):
+            return payload_grad(d_table, tile_gauss.reshape(-1), ctx.n), None
 
 
 def build_payload_table(src: torch.Tensor, tile_gauss: torch.Tensor) -> torch.Tensor:
@@ -148,7 +150,7 @@ def blend_inputs(
     features = torch.cat(feats, dim=-1)  # [N, F]
     F = features.shape[-1]
     c_pad = payload_rows(F)
-    with record_function("binning"):
+    with span("binning"):
         if table:
             bins = binning_lib.bin_gaussians(
                 screen, grid_x, grid_y, config.instance_capacity, config.tile_capacity
@@ -158,7 +160,7 @@ def blend_inputs(
                 screen, grid_x, grid_y, config.instance_capacity, config.tile_capacity,
                 corner_cull=config.corner_cull,
             )
-    with record_function("payload"):
+    with span("payload"):
         # one [N, c_pad] source: (mx, my, ca, cb, cc, op, feats..., AbsGS
         # rows, zero rows)
         cols = [screen.mean2d, screen.conic, screen.opacity[:, None], features]
@@ -193,7 +195,7 @@ def rasterize(
     binning diagnostics."""
     bi = blend_inputs(screen, H, W, extra_features, config, absgrad_dummy)
     F, grid_x, grid_y = bi.num_features, bi.grid_x, bi.grid_y
-    with record_function("tile_blend"):
+    with span("tile_blend"):
         if config.layout == "table":
             out = TileBlend.apply(bi.payload, bi.bins.tile_count, F, grid_x)
         else:

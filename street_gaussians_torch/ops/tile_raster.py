@@ -75,6 +75,7 @@ from street_gaussians_torch.ops.tile_raster2 import (
     _pixel_coords,
     payload_rows,
 )
+from street_gaussians_torch.utils.trace import span
 
 
 class _Chunk(NamedTuple):
@@ -332,7 +333,8 @@ def _launch_plan(tile_count: torch.Tensor, capacity: int, seg_chunks: int):
     _build.check(err, "tile_blend")
     if max_items == T:
         return plan, 0, T, max_items
-    n_long, n_items = plan[:2].tolist()
+    with span("sync/table_plan"):
+        n_long, n_items = plan[:2].tolist()
     return plan, n_long, n_items, max_items
 
 
@@ -466,5 +468,6 @@ class TileBlend(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gout):
         payload, tile_count, out = ctx.saved_tensors
-        d_payload = tile_blend_bwd(payload, tile_count, out, gout.contiguous(), *ctx.dims, state=ctx.state)
+        with span("tile_blend_bwd"):
+            d_payload = tile_blend_bwd(payload, tile_count, out, gout.contiguous(), *ctx.dims, state=ctx.state)
         return d_payload, None, None, None

@@ -58,6 +58,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from street_gaussians_torch.kernels import _build
+from street_gaussians_torch.utils.trace import span
 
 TILE = 16
 PIX = TILE * TILE  # 256 pixels per tile
@@ -535,7 +536,8 @@ class TileBlendInstances(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gout):
         payload, tile_start, tile_count, out = ctx.saved_tensors
-        d_payload = tile_blend_bwd(
-            payload, tile_start, tile_count, out, gout.contiguous(), *ctx.dims, state=ctx.state
-        )
+        with span("tile_blend_bwd"):
+            d_payload = tile_blend_bwd(
+                payload, tile_start, tile_count, out, gout.contiguous(), *ctx.dims, state=ctx.state
+            )
         return d_payload, None, None, None, None, None

@@ -31,6 +31,7 @@ import torch
 from street_gaussians_torch.models.gaussians import GaussianAux, GaussianParams, SceneTable
 from street_gaussians_torch.optim.adam import AdamState
 from street_gaussians_torch.utils.quaternion import quat_normalize, quat_to_rotmat
+from street_gaussians_torch.utils.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +72,8 @@ def step_stats(
     rasterizer's NDC units) [C, 2], the visibility count [C] and the
     radius [C], each 0 where the Gaussian is not visible."""
     vis = radii > 0.0
-    scale = torch.tensor([W / 2.0, H / 2.0], device=radii.device)
+    with span("sync/stat_scale"):
+        scale = torch.tensor([W / 2.0, H / 2.0], device=radii.device)
     g = viewspace_grad * scale[None, :]
     ga = viewspace_absgrad * scale[None, :]
     add = torch.stack([torch.linalg.norm(g, dim=-1), ga[:, 0] + ga[:, 1]], dim=-1)
@@ -124,7 +126,8 @@ def densify_and_prune(
     M = table.num_models
     is_actor = (mid > 0) & (table.track_id[mid] >= 0)
     is_sky = (mid == table.sky_model) & (table.sky_model >= 0)
-    seg_start_row = torch.as_tensor(table.slices[:, 0], device=dev)[mid]
+    with span("sync/densify_constants"):
+        seg_start_row = torch.as_tensor(table.slices[:, 0], device=dev)[mid]
     if noise is None:
         noise = draw_noise(C, generator, dev)
 
@@ -134,10 +137,11 @@ def densify_and_prune(
     thr_obj = thr if cfg.densify_grad_threshold_obj is None else cfg.densify_grad_threshold_obj
     plain_actor = table.random_init[mid] | table.deformable[mid]
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
-    thr_row = torch.where(
-        is_actor, torch.where(plain_actor, f32(thr), f32(thr_obj)),
-        torch.where(is_sky, f32(thr), f32(thr_bkgd)),
-    )
+    with span("sync/densify_constants"):
+        thr_row = torch.where(
+            is_actor, torch.where(plain_actor, f32(thr), f32(thr_obj)),
+            torch.where(is_sky, f32(thr), f32(thr_bkgd)),
+        )
     use_abs = torch.where(
         is_actor, ~plain_actor & cfg.densify_grad_abs_obj, ~is_sky & cfg.densify_grad_abs_bkgd
     )
@@ -156,7 +160,8 @@ def densify_and_prune(
     opacity = torch.sigmoid(params.opacity_logit)[:, 0]
     prune = aux.alive & (opacity < cfg.min_opacity)
     big_ws = max_scale > ext_row * cfg.percent_big_ws
-    center = torch.as_tensor(table.sphere_center, device=dev)
+    with span("sync/densify_constants"):
+        center = torch.as_tensor(table.sphere_center, device=dev)
     d_sphere = torch.linalg.norm(params.xyz - center[None, :], dim=-1)
     big_bkgd = big_ws & (d_sphere <= 2.0 * table.sphere_radius)
     samples = noise.box * scaling[:, None, :]
@@ -184,12 +189,14 @@ def densify_and_prune(
     # slot allocation within each model's slice
     free = ~alive_after
     free_rank = _rank_in_segment(free, seg_start_row)
-    free_count = torch.bincount(mid[free], minlength=M)
+    with span("sync/densify_counts"):  # a boolean mask's length, bincount's largest id
+        free_count = torch.bincount(mid[free], minlength=M)
     rows = torch.arange(C, device=dev)
     slot_by_rank = torch.zeros(C + 1, dtype=torch.int64, device=dev)
     slot_by_rank[torch.where(free, seg_start_row + free_rank, C)] = rows
     slot_by_rank = slot_by_rank[:C]
-    count_a = torch.bincount(mid[valid_a], minlength=M)
+    with span("sync/densify_counts"):
+        count_a = torch.bincount(mid[valid_a], minlength=M)
     rank_a = _rank_in_segment(valid_a, seg_start_row)
     rank_b = _rank_in_segment(valid_b, seg_start_row) + count_a[mid]
 
@@ -218,8 +225,10 @@ def densify_and_prune(
     def zero_rows(tree):
         return {k: _scatter_rows(a, dest, (0.0, 0.0)) for k, a in tree.items()}
 
-    new_adam = AdamState(mu=zero_rows(adam.mu), nu=zero_rows(adam.nu), count=zero_rows(adam.count))
-    new_alive = _scatter_rows(alive_after, dest, (True, True))
+    # a Python scalar written into rows is copied to the card first
+    with span("sync/densify_fill"):
+        new_adam = AdamState(mu=zero_rows(adam.mu), nu=zero_rows(adam.nu), count=zero_rows(adam.count))
+        new_alive = _scatter_rows(alive_after, dest, (True, True))
     new_aux = dataclasses.replace(
         aux,
         alive=new_alive,
@@ -242,7 +251,9 @@ def reset_opacity(params: GaussianParams, adam: AdamState) -> Tuple[GaussianPara
     """Clamp opacity to <= 0.01 and zero its Adam moments (step counts
     kept). `adam` holds the Gaussian leaves, keyed by field name."""
     op = torch.sigmoid(params.opacity_logit)
-    op = torch.minimum(op, op.new_tensor(0.01))
+    with span("sync/densify_constants"):
+        cap = op.new_tensor(0.01)
+    op = torch.minimum(op, cap)
     new_params = dataclasses.replace(params, opacity_logit=torch.log(op / (1.0 - op)))
     zero = lambda t: {**t, "opacity_logit": torch.zeros_like(t["opacity_logit"])}  # noqa: E731
     return new_params, AdamState(mu=zero(adam.mu), nu=zero(adam.nu), count=adam.count)

@@ -68,7 +68,6 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from street_gaussians_torch.models import gaussians as G_
 from street_gaussians_torch.models.actor_pose import ActorPoseData
@@ -81,11 +80,13 @@ from street_gaussians_torch.train_lib import (
     GAUSS,
     TrainState,
     compute_losses,
+    count_instances,
     flatten_params,
     step_around,
     take_draws,
     unflatten_params,
 )
+from street_gaussians_torch.utils.trace import span
 
 EXTRAS = ("normals", "semantic")
 
@@ -210,7 +211,7 @@ def screen_rows(params, aux, table: G_.SceneTable, pose_data: Optional[ActorPose
     parts = []
     for lo, row0 in shards.blocks:
         p, a = _block(params, aux, lo, n)
-        with record_function("screen_space"):
+        with span("screen_space"):
             sc, comp = screen_space(
                 p, a, table, pose_data, frame, step, opts,
                 flip=None if flip is None else flip[row0:row0 + n],
@@ -219,7 +220,7 @@ def screen_rows(params, aux, table: G_.SceneTable, pose_data: Optional[ActorPose
             )
         parts.append([*sc, *(comp[k] for k in EXTRAS if comp[k] is not None)])
         has = [comp[k] is not None for k in EXTRAS]
-    with record_function("gather_rows"):
+    with span("gather_rows"):
         joined = shards.join(parts)
     nf = len(GaussianScreenData._fields)
     extra = iter(joined[nf:])
@@ -336,13 +337,14 @@ def make_gauss_sharded_train_step(
         out_obj = None
         if obj_mask is not None and state.step >= o.densify_until_iter:
             # the actors alone, through the same gather (gauss.py:402-412)
-            with record_function("object_render"):
-                out_obj = {"acc": render(include_mask=obj_mask, keys=("acc",), compose_sky=False)["acc"]}
-        with record_function("losses"):
+            with span("object_render"):
+                out_obj = render(include_mask=obj_mask, keys=("acc",), compose_sky=False)
+        with span("losses"):
             loss, scalars = compute_losses(out, gt, params, cfg, cam.image_id, aux=state.aux, table=table,
                                            out_obj=out_obj)
+        count_instances(scalars, opts.instance_capacity, out, out_obj)
         wrt = [*leaves.values(), m2d_off, abs_dummy]
-        with record_function("backward"):
+        with span("backward"):
             grads = torch.autograd.grad(loss / G if group is not None else loss, wrt, allow_unused=True)
         grads = dict(zip([*leaves, "m2d", "abs"], (torch.zeros_like(x) if g is None else g
                                                   for g, x in zip(grads, wrt))))

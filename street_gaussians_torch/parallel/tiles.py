@@ -43,14 +43,21 @@ import dataclasses
 from typing import Callable, Dict, List, Optional
 
 import torch
-from torch.profiler import record_function
 
 from street_gaussians_torch.models import gaussians as G
 from street_gaussians_torch.models.actor_pose import ActorPoseData
 from street_gaussians_torch.models.renderer import RenderOptions, render_frame, render_object_mask, screen_space
 from street_gaussians_torch.ops.preprocess import TILE
 from street_gaussians_torch.parallel.comm import Group
-from street_gaussians_torch.train_lib import compute_losses, flatten_params, step_around, take_draws, unflatten_params
+from street_gaussians_torch.train_lib import (
+    compute_losses,
+    count_instances,
+    flatten_params,
+    step_around,
+    take_draws,
+    unflatten_params,
+)
+from street_gaussians_torch.utils.trace import span
 
 IMAGE_KEYS = ("rgb", "acc", "depth", "T", "normals", "semantic")
 COUNTERS = ("overflow", "overflow_instance", "overflow_tile", "num_instances")
@@ -152,7 +159,7 @@ def render_bands(params, aux, table: G.SceneTable, pose_data: Optional[ActorPose
     for d in bands.mine:
         start, rows = layout.band(d)
         jit = None if jitter is None else jitter[start * TILE:(start + rows) * TILE]
-        with record_function(f"band_{d}"):
+        with span(f"band_{d}"):
             outs.append(render_frame(params, aux, table, pose_data, frame, step, opts=opts, sky_jitter=jit,
                                      row_shard=(start, rows), screen_composed=screen_composed, **kw))
     return join_bands(bands, outs, frame.cam.H, keys)
@@ -176,7 +183,7 @@ def make_row_sharded_render(
     local_opts = dataclasses.replace(opts, instance_capacity=band_capacity(opts.instance_capacity, D))
 
     def render(params, aux, frame, sky_table=None):
-        with record_function("screen_space"):
+        with span("screen_space"):
             sc = screen_space(params, aux, table, pose_data, frame, EVAL_STEP, local_opts, include_mask=include_mask)
         return render_bands(params, aux, table, pose_data, frame, EVAL_STEP, local_opts, sc, bands,
                             sky_table=sky_table)
@@ -227,7 +234,7 @@ def make_tile_sharded_train_step(
             draws = take_draws(table, state, cam, generator, opts)
 
         def band_renders(jitter=None, mean2d_offset=None, include_mask=None, **kw):
-            with record_function("screen_space"):
+            with span("screen_space"):
                 sc = screen_space(params, state.aux, table, pose_data, frame, state.step, local_opts,
                                   flip=draws.flip, mean2d_offset=mean2d_offset, include_mask=include_mask)
             return render_bands(params, state.aux, table, pose_data, frame, state.step, local_opts, sc, bands,
@@ -237,13 +244,14 @@ def make_tile_sharded_train_step(
                            absgrad_dummy=abs_dummy)
         out_obj = None
         if obj_mask is not None and state.step >= o.densify_until_iter:
-            with record_function("object_render"):
-                out_obj = {"acc": band_renders(include_mask=obj_mask, keys=("acc",), compose_sky=False)["acc"]}
-        with record_function("losses"):
+            with span("object_render"):
+                out_obj = band_renders(include_mask=obj_mask, keys=("acc",), compose_sky=False)
+        with span("losses"):
             loss, scalars = compute_losses(out, gt, params, cfg, cam.image_id, aux=state.aux, table=table,
                                            out_obj=out_obj)
+        count_instances(scalars, opts.instance_capacity, out, out_obj)
         wrt = [*leaves.values(), m2d_off, abs_dummy]
-        with record_function("backward"):
+        with span("backward"):
             grads = torch.autograd.grad(loss / D if bands.group is not None else loss, wrt, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, wrt)]
         # band shares -> the whole gradient (a band group only)

@@ -86,6 +86,7 @@ from street_gaussians_torch.train_lib import (
 from street_gaussians_torch.utils import losses as L
 from street_gaussians_torch.utils.image_io import imread, imwrite
 from street_gaussians_torch.utils.lpips import lpips as lpips_fn
+from street_gaussians_torch.utils.trace import profiler, span
 from street_gaussians_torch.visualize import Visualizer, save_image, visualize_depth
 
 EVAL_STEP = 10**9  # SH degree fully active
@@ -703,19 +704,44 @@ def training(cfg: Config, progress: bool = True, device=None, group=None) -> Dic
     # ground-truth read, a densify round, a frame served to the viewer;
     # an eval, save or growth just before it)
     windows, t_window, marks = [], time.perf_counter(), set()
+    # train.trace_dir: iterations [first, last] of train.trace_iterations
+    # (default the run's first 10) traced into trace_dir/train_trace.json
+    trace_dir = cfg.train.get("trace_dir", None)
+    trace_first, trace_last = map(int, cfg.train.get("trace_iterations", None) or (start_iter + 1, start_iter + 10))
+    prof = None
+
+    def end_trace():
+        nonlocal prof
+        sync()
+        prof.stop()
+        os.makedirs(str(trace_dir), exist_ok=True)
+        name = "train_trace.json" if group is None else f"train_trace_rank{group.rank}.json"
+        path = os.path.join(str(trace_dir), name)
+        prof.export_chrome_trace(path)
+        prof = None
+        print(f"[train] profiler trace written to {path}", flush=True)
+
     try:
         for iteration in range(start_iter + 1, iters + 1):
-            view = plan.view(view_stack, scene, rng)
+            if trace_dir and prof is None and trace_first <= iteration <= trace_last:
+                sync()
+                prof = profiler(device)
+                prof.start()
+            with span("view"):
+                view = plan.view(view_stack, scene, rng)
             misses = gt_cache.misses
-            gt = gt_cache.get(view)
+            with span("ground_truth"):
+                gt = gt_cache.get(view)
             if gt_cache.misses != misses:
                 marks.add("ground_truth")
 
             state, scalars = step_fn(state, view.frame_input, gt, generator)
 
-            if viewer is not None and viewer.poll(state, view, training_done=iteration >= iters,
-                                                  iteration=iteration):
-                marks.add("viewer")
+            if viewer is not None:
+                with span("viewer"):
+                    served = viewer.poll(state, view, training_done=iteration >= iters, iteration=iteration)
+                if served:
+                    marks.add("viewer")
 
             state, ddiag = densify_cadence(cfg, state, iteration, densify_fn, reset_fn, generator)
             if ddiag is not None:
@@ -726,7 +752,8 @@ def training(cfg: Config, progress: bool = True, device=None, group=None) -> Dic
 
             if iteration % 10 == 0:
                 # one host sync for every scalar of the step
-                values = dict(zip(scalars, torch.stack([v.double() for v in scalars.values()]).tolist()))
+                with span("sync/step_scalars"):
+                    values = dict(zip(scalars, torch.stack([v.double() for v in scalars.values()]).tolist()))
                 loss, psnr_v = values["loss"], values["psnr"]
                 if not np.isfinite(loss):
                     rec = {**values, "iteration": iteration, "event": "non_finite_loss"}
@@ -765,14 +792,15 @@ def training(cfg: Config, progress: bool = True, device=None, group=None) -> Dic
                 # gauss group and every rank renders (runner.py:971-1003);
                 # the writer alone saves it
                 t0 = time.perf_counter()
-                state_full = shards.gather(state)
-                r = eval_render(state_full.params, state_full.aux, view.frame_input)
-                ro = (eval_obj_render(state_full.params, state_full.aux, view.frame_input)
-                      if eval_obj_render is not None else None)
-                if is_writer:
-                    os.makedirs(os.path.join(cfg.model_path, "log_images"), exist_ok=True)
-                    save_image(os.path.join(cfg.model_path, "log_images", f"{iteration}.png"),
-                               log_image_grid(gt.image, r, ro))
+                with span("log_images"):
+                    state_full = shards.gather(state)
+                    r = eval_render(state_full.params, state_full.aux, view.frame_input)
+                    ro = (eval_obj_render(state_full.params, state_full.aux, view.frame_input)
+                          if eval_obj_render is not None else None)
+                    if is_writer:
+                        os.makedirs(os.path.join(cfg.model_path, "log_images"), exist_ok=True)
+                        save_image(os.path.join(cfg.model_path, "log_images", f"{iteration}.png"),
+                                   log_image_grid(gt.image, r, ro))
                 r = ro = state_full = None
                 timing["log_images_s"] += time.perf_counter() - t0
                 marks.add("log_images")
@@ -784,7 +812,8 @@ def training(cfg: Config, progress: bool = True, device=None, group=None) -> Dic
                 state_full = shards.gather(state)
             if iteration in cfg.train.test_iterations and is_writer:
                 t0 = time.perf_counter()
-                report = evaluate_psnr(cfg, scene, state_full, eval_render, gt_cache=gt_cache)
+                with span("eval"):
+                    report = evaluate_psnr(cfg, scene, state_full, eval_render, gt_cache=gt_cache)
                 timing["eval_s"] += time.perf_counter() - t0
                 print(f"[eval @{iteration}] {report}", flush=True)
                 log_f.write(json.dumps({"iteration": iteration, **report}) + "\n")
@@ -793,15 +822,22 @@ def training(cfg: Config, progress: bool = True, device=None, group=None) -> Dic
 
             if is_writer and saves:
                 t0 = time.perf_counter()
-                if iteration in cfg.train.save_iterations:
-                    ckpt_lib.save_point_cloud(cfg.point_cloud_dir, iteration, state_full.params.gaussians,
-                                              state_full.aux, scene.table)
-                if iteration in cfg.train.checkpoint_iterations:
-                    ckpt_lib.save_train_state(cfg.trained_model_dir, iteration, state_full)
+                with span("save"):
+                    if iteration in cfg.train.save_iterations:
+                        ckpt_lib.save_point_cloud(cfg.point_cloud_dir, iteration, state_full.params.gaussians,
+                                                  state_full.aux, scene.table)
+                    if iteration in cfg.train.checkpoint_iterations:
+                        ckpt_lib.save_train_state(cfg.trained_model_dir, iteration, state_full)
                 timing["save_s"] += time.perf_counter() - t0
                 marks.add("save")
             state_full = None
+            if prof is not None and iteration == trace_last:
+                end_trace()
+        if prof is not None:  # the run ended inside the traced iterations
+            end_trace()
     finally:
+        if prof is not None:  # an error inside the traced iterations
+            prof.stop()
         log_f.close()
         if tb is not None:
             tb.close()
@@ -1011,10 +1047,7 @@ def render_sets(cfg: Config, state: Optional[TrainState] = None, scene: Optional
         sync()
 
     trace_dir = cfg.render.get("trace_dir", None)
-    prof = contextlib.nullcontext()
-    if trace_dir:
-        acts = [torch.profiler.ProfilerActivity.CPU] + ([torch.profiler.ProfilerActivity.CUDA] if cuda else [])
-        prof = torch.profiler.profile(activities=acts)
+    prof = profiler(device) if trace_dir else contextlib.nullcontext()
     times, regrows = [], []
     with prof:
         for split, views, skip in (("test", scene.test_views, cfg.eval.skip_test),

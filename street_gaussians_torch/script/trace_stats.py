@@ -1,7 +1,9 @@
 """Totals per step (or view) of a profiler trace written by `python -m
-street_gaussians_torch.train --profile` or `serve --profile`: the
-device's busy ms, the kernels, the host's synchronisations, and the ms
-and launches of the kernels whose names hold each given string.
+street_gaussians_torch.train --profile`, `serve --profile`,
+`train.trace_dir` or `render.trace_dir`: the device's busy ms, the
+kernels, the host's synchronisations, the ms and launches of the
+kernels whose names hold each given string, and per `sync/` span the
+syncs and the device's idle ms that begin in it (utils.trace).
 
     python -m street_gaussians_torch.script.trace_stats TRACE.json --steps 5
         [--kernel segsum expand_runs ...]
@@ -15,20 +17,7 @@ from __future__ import annotations
 import argparse
 import json
 
-from street_gaussians_torch.serve import busy_ms, device_events, host_syncs
-
-
-def trace_stats(trace_path: str, steps: int, kernels=()) -> dict:
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
-    dev = device_events(events)
-    launched = [e for e in dev if e.get("cat") == "kernel"]
-    named = {}
-    for key in kernels:
-        hits = [e for e in launched if key in e["name"]]
-        named[key] = {"ms": sum(e["dur"] for e in hits) / 1e3 / steps, "launches": len(hits) / steps}
-    return {"busy_ms": busy_ms(dev) / steps, "kernels": len(launched) / steps,
-            "host_syncs": len(host_syncs(events)) / steps, "named": named}
+from street_gaussians_torch.utils.trace import trace_stats
 
 
 def main(argv=None) -> None:

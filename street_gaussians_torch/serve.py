@@ -36,6 +36,7 @@ from street_gaussians_torch.models.renderer import (
     render_frame,
 )
 from street_gaussians_torch.models.sky_cubemap import SkyParams, build_sky_table
+from street_gaussians_torch.utils import trace
 
 # bench.py's serving scene and options
 BENCH_SCENE = dict(
@@ -110,90 +111,6 @@ def render_views(
         ]
 
 
-# the profiler ranges of models/renderer.py and ops/rasterize.py
-STAGES = ("screen_space", "binning", "payload", "tile_blend", "sky")
-
-
-def device_events(events: list) -> list:
-    """A Chrome trace's kernel, copy and set events, by start time."""
-    return sorted(
-        (e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e),
-        key=lambda e: e["ts"],
-    )
-
-
-def busy_ms(dev: list) -> float:
-    """The union of the device events' intervals, in ms."""
-    busy_us, end = 0.0, float("-inf")
-    for e in dev:
-        a, b = e["ts"], e["ts"] + e["dur"]
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    return busy_us / 1e3
-
-
-def host_syncs(events: list) -> list:
-    """The host's stream and device synchronisations in a trace."""
-    return [e for e in events if e.get("cat") == "cuda_runtime"
-            and e.get("name") in ("cudaStreamSynchronize", "cudaDeviceSynchronize")]
-
-
-def trace_summary(trace_path: str, wall_ms: float, views: int, stages=STAGES) -> dict:
-    """From a Chrome trace of `views` views (or steps) that took
-    `wall_ms` on the host: the device's busy time (union of kernel, copy
-    and set intervals, over all the views, as wall_ms is) and idle
-    share, and per view and stage (profiler
-    range name) the device span, the kernel time and count inside it,
-    the kernel time and count launched (from any host thread) while the
-    host range was open, the host time and the host's stream
-    synchronisations; plus the kernels that took the most time. The
-    launched counts see the backward, whose kernels autograd launches
-    from its own thread outside the device span of the range."""
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
-    dev = device_events(events)
-    busy_us = busy_ms(dev) * 1e3
-    runtime = [e for e in events if e.get("cat") == "cuda_runtime"]
-    syncs = host_syncs(events)
-    launch_ts = {e["args"]["correlation"]: e["ts"] for e in runtime if "correlation" in e.get("args", {})}
-    launched = [(launch_ts[k["args"]["correlation"]], k["dur"]) for k in dev
-                if k.get("cat") == "kernel" and k.get("args", {}).get("correlation") in launch_ts]
-    stages = {k: dict(span_ms=0.0, kernel_ms=0.0, kernels=0, launched_kernel_ms=0.0, launched_kernels=0,
-                      host_ms=0.0, host_syncs=0) for k in stages}
-    for e in events:
-        st = stages.get(e.get("name"))
-        if st is None or "dur" not in e:
-            continue
-        lo, hi = e["ts"], e["ts"] + e["dur"]
-        if e.get("cat") == "gpu_user_annotation":
-            st["span_ms"] += e["dur"] / 1e3
-            inside = [k for k in dev if k.get("cat") == "kernel" and lo <= k["ts"] <= hi]
-            st["kernel_ms"] += sum(k["dur"] for k in inside) / 1e3
-            st["kernels"] += len(inside)
-        elif e.get("cat") == "user_annotation":
-            st["host_ms"] += e["dur"] / 1e3
-            st["host_syncs"] += sum(lo <= y["ts"] <= hi for y in syncs)
-            inside = [d for t, d in launched if lo <= t <= hi]
-            st["launched_kernel_ms"] += sum(inside) / 1e3
-            st["launched_kernels"] += len(inside)
-    for st in stages.values():
-        for k in st:
-            st[k] /= views
-    by_name: Dict[str, list] = {}
-    for e in dev:
-        t = by_name.setdefault(e["name"][:80], [0.0, 0])
-        t[0] += e["dur"] / 1e3 / views
-        t[1] += 1 / views
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    return {
-        "device_busy_ms": busy_us / 1e3, "wall_ms": wall_ms,
-        "idle_share": (1.0 - busy_us / 1e3 / wall_ms) if dev else None,
-        "per_view": stages,
-        "top_kernels_per_view": [{"name": n, "ms": t, "launches": c} for n, (t, c) in top],
-    }
-
-
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--views", type=int, default=8)
@@ -212,12 +129,7 @@ def main(argv=None) -> None:
     render_views(scene, params, frames[:1], device=device, sky_table=sky_table)  # warm-up
     sync()
     times = []
-    prof = contextlib.nullcontext()
-    if args.profile:
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=acts)
+    prof = trace.profiler(device) if args.profile else contextlib.nullcontext()
     outs = []
     with prof:
         for f in frames:
@@ -238,7 +150,7 @@ def main(argv=None) -> None:
     }
     if args.profile:
         prof.export_chrome_trace(args.profile)
-        summary["profile"] = trace_summary(args.profile, sum(times), len(frames))
+        summary["profile"] = trace.trace_summary(args.profile, sum(times), len(frames))
     print(json.dumps(summary))
 
 

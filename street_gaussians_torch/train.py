@@ -36,7 +36,7 @@ and prints one JSON line per timed step (loss, psnr, overflow, ms) and a
 summary. Densify and the opacity reset run at the config's intervals.
 --profile traces the timed steps with torch.profiler, writes the Chrome
 trace there and adds the device's busy time, idle share and a per-stage
-breakdown (serve.trace_summary plus the `losses`, `backward` and
+breakdown (utils.trace.trace_summary plus the `losses`, `backward` and
 `optimizer` ranges of train_lib) to the summary.
 """
 
@@ -66,10 +66,11 @@ from street_gaussians_torch.train_lib import (
     make_reset_opacity_fn,
     make_train_step,
 )
+from street_gaussians_torch.utils import trace
 
 GT_FRAME = 2
 WARMUP = 3
-STAGES = serve.STAGES + ("losses", "backward", "optimizer")
+STAGES = trace.STAGES + ("losses", "backward", "optimizer")
 
 
 @dataclasses.dataclass
@@ -184,12 +185,7 @@ def main(argv=None):
     sync()
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
-    prof = contextlib.nullcontext()
-    if args.profile:
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if cuda:
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=acts)
+    prof = trace.profiler(device) if args.profile else contextlib.nullcontext()
     times, records = [], []
     with prof:
         for _ in range(args.steps):
@@ -212,7 +208,7 @@ def main(argv=None):
     }
     if args.profile:
         prof.export_chrome_trace(args.profile)
-        summary["profile"] = serve.trace_summary(args.profile, sum(times), len(times), STAGES)
+        summary["profile"] = trace.trace_summary(args.profile, sum(times), len(times), STAGES)
     print(json.dumps(summary))
 
 

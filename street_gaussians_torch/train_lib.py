@@ -33,7 +33,6 @@ import dataclasses
 from typing import Dict, NamedTuple, Optional
 
 import torch
-from torch.profiler import record_function
 
 from street_gaussians_torch.config import Config
 from street_gaussians_torch.models import gaussians as G
@@ -59,6 +58,7 @@ from street_gaussians_torch.optim.densify import (
 )
 from street_gaussians_torch.optim.schedule import expon_lr
 from street_gaussians_torch.utils import losses as L
+from street_gaussians_torch.utils.trace import span
 
 GROUPS = ("gaussians", "actor_pose", "sky", "color_correction", "pose_correction")
 GAUSS = "gaussians."
@@ -160,7 +160,8 @@ def make_lr_tree(cfg: Config, table: G.SceneTable, params: SceneParams, aux, ste
     for the Gaussians, floats for the rest."""
     o = cfg.optim
     iters = cfg.train.iterations
-    lr = {GAUSS + k: v for k, v in _gaussian_lr(cfg, table, aux.model_id, step).items()}
+    with span("sync/lr_scalars"):
+        lr = {GAUSS + k: v for k, v in _gaussian_lr(cfg, table, aux.model_id, step).items()}
     if params.actor_pose is not None:
         # frozen until the first opacity reset
         for name, kind in (("opt_trans", "position"), ("opt_rots", "rotation")):
@@ -281,6 +282,18 @@ def compute_losses(
     return loss, scalars
 
 
+def count_instances(scalars: dict, capacity: int, *outs) -> None:
+    """Adds to scalars num_instances, the binning's (Gaussian, tile)
+    instances summed over the step's renders (outs; None for a render
+    not made), and instance_fill, that over one render's instance
+    capacity: binning scans the whole capacity a render, so 1 -
+    instance_fill is the scan's slack (past densify_until_iter two
+    renders share one capacity's worth, and it reads up to 2)."""
+    n = sum(o["num_instances"] for o in outs if o is not None)
+    scalars["num_instances"] = n.to(torch.float32)
+    scalars["instance_fill"] = scalars["num_instances"] / capacity
+
+
 def take_draws(table: G.SceneTable, state: TrainState, cam, generator: Optional[torch.Generator],
                opts: RenderOptions, cameras: int = 1, index: int = 0,
                model_id: Optional[torch.Tensor] = None) -> Draws:
@@ -377,7 +390,7 @@ def step_around(loss_and_grads, cfg: Config, table: G.SceneTable, opts: RenderOp
         if draws is None:
             draws = take_draws(table, state, frame.cam, generator, opts, cameras, index, model_id)
         scalars, out, g_params, g_m2d, g_abs = loss_and_grads(state, frame, gt, draws=draws)
-        with torch.no_grad(), record_function("optimizer"):
+        with torch.no_grad(), span("optimizer"):
             scalars["psnr"] = L.psnr(out["rgb"], gt.image, gt.mask)
             return apply_gradients(cfg, table, state, frame.cam, scalars, out, g_params, g_m2d, g_abs,
                                    data_group, row_group)
@@ -431,17 +444,18 @@ def make_train_step(
         if obj_mask is not None and state.step >= o.densify_until_iter:
             # the actors alone: the same flip, no sky, and no view-space
             # offsets, so that densification sees only the full render
-            with record_function("object_render"):
+            with span("object_render"):
                 out_obj = render_frame(
                     params, state.aux, table, pose_data, frame, state.step, opts=opts,
                     flip=draws.flip, include_mask=obj_mask, compose_sky=False,
                 )
-        with record_function("losses"):
+        with span("losses"):
             loss, scalars = compute_losses(
                 out, gt, params, cfg, frame.cam.image_id, aux=state.aux, table=table, out_obj=out_obj
             )
+        count_instances(scalars, opts.instance_capacity, out, out_obj)
         wrt = [*leaves.values(), m2d_off, abs_dummy]
-        with record_function("backward"):
+        with span("backward"):
             grads = torch.autograd.grad(loss, wrt, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, wrt)]
         return scalars, out, dict(zip(leaves, grads[:-2])), grads[-2], grads[-1]
@@ -506,11 +520,14 @@ def densify_cadence(cfg: Config, state: TrainState, iteration: int, densify_fn, 
     diag = None
     if iteration < o.densify_until_iter:
         if iteration > o.densify_from_iter and iteration % o.densification_interval == 0:
-            state, diag = densify_fn(state, generator, iteration > o.opacity_reset_interval)
+            with span("densify"):
+                state, diag = densify_fn(state, generator, iteration > o.opacity_reset_interval)
         if iteration % o.opacity_reset_interval == 0:
-            state = reset_fn(state)
+            with span("densify"):
+                state = reset_fn(state)
         if cfg.data.get("white_background", False) and iteration == o.densify_from_iter:
-            state = reset_fn(state)
+            with span("densify"):
+                state = reset_fn(state)
     return state, diag
 
 

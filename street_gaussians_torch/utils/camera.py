@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from street_gaussians_torch._device import resolve_device
+from street_gaussians_torch.utils.trace import span
 
 
 def projection_matrix_from_K(
@@ -144,7 +145,8 @@ def camera_rays(
             x = x + jitter[..., 0]
             y = y + jitter[..., 1]
     pix = torch.stack([x + 0.5, y + 0.5, torch.ones_like(x)], dim=-1)
-    Kinv = torch.linalg.inv(cam.K)
+    with span("sync/camera_inverse"):  # linalg.inv reads its error flag back
+        Kinv = torch.linalg.inv(cam.K)
     dirs_cam = pix @ Kinv.T
     c2w_rot = cam.w2c[:3, :3].T
     dirs_world = dirs_cam @ c2w_rot.T

@@ -14,15 +14,23 @@ from typing import Optional
 
 import torch
 
+from street_gaussians_torch.utils.trace import span
+
+
+def _bound(v, x: torch.Tensor) -> torch.Tensor:
+    # a Python float copied to the card waits on the stream
+    with span("sync/clip_bounds"):
+        return torch.as_tensor(v, dtype=x.dtype, device=x.device)
+
 
 def jnp_maximum(x: torch.Tensor, lo) -> torch.Tensor:
     """max(x, lo) with jnp.maximum's gradient: half to each side at a tie."""
-    return torch.maximum(x, torch.as_tensor(lo, dtype=x.dtype, device=x.device))
+    return torch.maximum(x, _bound(lo, x))
 
 
 def jnp_clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
     """jnp.clip: maximum, then minimum, with their tie gradients."""
-    return torch.minimum(jnp_maximum(x, lo), torch.as_tensor(hi, dtype=x.dtype, device=x.device))
+    return torch.minimum(jnp_maximum(x, lo), _bound(hi, x))
 
 
 def jnp_abs(x: torch.Tensor) -> torch.Tensor:

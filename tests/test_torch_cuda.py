@@ -479,6 +479,88 @@ def test_runner_training_matches_cpu(cuda_device):
     small_runner_check(cuda_device)
 
 
+def _cell1_cfg():
+    """The full-scene recipe of the benchmark's cells 1 and 4
+    (benchmark/configs/waymo_train_002.json, read as data) over the
+    defaults."""
+    import json
+
+    from street_gaussians_torch.config import default_config
+
+    def merge(dst, src):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                merge(dst[k], v)
+            else:
+                dst[k] = v
+        return dst
+
+    with open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "benchmark", "configs",
+                           "waymo_train_002.json")) as f:
+        return merge(default_config(), json.load(f)["recipe"])
+
+
+@pytest.mark.cuda
+def test_every_host_sync_lies_in_a_sync_span(cuda_device, tmp_path):
+    """Traced train steps of the full-scene recipe (sky, LiDAR depth,
+    actors with flips) on a small synthetic scene: one that ends in a
+    densify round, one in a densify round and an opacity reset, one past
+    densify_until_iter (the object render), then an eval render with the
+    sky table: every cudaStreamSynchronize / cudaDeviceSynchronize they
+    make lies inside a `sync/` span of its own thread (utils.trace)."""
+    import dataclasses
+
+    from street_gaussians_torch import train as ttrain_cli
+    from street_gaussians_torch.data.dataset import Scene
+    from street_gaussians_torch.models.sky_cubemap import build_sky_table
+    from street_gaussians_torch.runner import make_eval_render
+    from street_gaussians_torch.train_lib import (
+        densify_cadence,
+        make_densify_fn,
+        make_reset_opacity_fn,
+        make_train_step,
+    )
+    from street_gaussians_torch.utils import trace
+
+    cell = ttrain_cli.bench_train_cell(cuda_device, num_bkgd=20_000, num_actors=2, H=266, W=400, sky_resolution=64)
+    cfg = _cell1_cfg()
+    sc = cell.scene
+    step_fn = make_train_step(cfg, sc.table, sc.pose_data, cell.opts)
+    densify_fn, reset_fn = make_densify_fn(cfg, sc.table), make_reset_opacity_fn()
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def step(state, iteration):
+        state, _ = step_fn(dataclasses.replace(state, step=iteration - 1), cell.frame, cell.gt, gen)
+        return densify_cadence(cfg, state, state.step, densify_fn, reset_fn, gen)[0]
+
+    scene = Scene(table=sc.table, params_init=cell.state.params.gaussians, aux_init=cell.state.aux,
+                  pose_data=sc.pose_data, pose_params_init=cell.state.params.actor_pose, train_views=[],
+                  test_views=[], metadata={})
+    render = make_eval_render(cfg, scene)
+    with torch.no_grad():
+        sky_table = build_sky_table(cell.state.params.sky.cubemap)
+    state = step(cell.state, 10_001)  # the kernels built, every shape warm
+    render(state.params, state.aux, cell.frame, sky_table=sky_table)
+    torch.cuda.synchronize()
+    with trace.profiler(cuda_device) as prof:
+        with torch.profiler.record_function("checked"):
+            for it in (10_100, 12_000, 30_001):
+                state = step(state, it)
+            render(state.params, state.aux, cell.frame, sky_table=sky_table)
+        torch.cuda.synchronize()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    ev = trace.load_events(path)
+    (win,) = [e for e in ev if e.get("cat") == "user_annotation" and e.get("name") == "checked"]
+    syncs = [y for y in trace.host_syncs(ev) if win["ts"] <= y["ts"] <= win["ts"] + win["dur"]]
+    spans = trace.host_spans(ev)
+    outside = [y for y in syncs if not any(s["tid"] == y["tid"] and s["ts"] <= y["ts"] <= s["ts"] + s["dur"]
+                                           for s in spans)]
+    assert len(syncs) > 100 and not outside, (len(syncs), outside[:5])
+    assert {"densify", "object_render", "sync/densify_fill", "sync/lr_scalars", "sync/sky_constants"} <= {
+        s["name"] for s in trace.host_spans(ev, "")}
+
+
 def test_every_source_is_built_by_name():
     sources = {f[:-3] for f in os.listdir(_build.CSRC_DIR) if f.endswith(".cu")}
     assert sources == set(_build.ALL_SOURCES)

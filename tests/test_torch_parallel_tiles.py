@@ -422,10 +422,17 @@ def assert_state_matches(got, js, js1, cfg, steps):
                     f"grad_accum[:, {c}]")
 
 
+# the port's instance counters, in its step's scalars alone (utils/trace.py)
+PORT_KEYS = {"num_instances", "instance_fill"}
+
+
 def assert_scalars(got, want):
     """The JAX step renders the actors before the gate too and weighs
     their loss by 0 (tests/test_torch_object_loss.py): obj_acc_loss only
-    where the port has it."""
+    where the port has it; the port's instance counters (PORT_KEYS) are
+    its own."""
+    assert PORT_KEYS <= set(got)
+    got = {k: v for k, v in got.items() if k not in PORT_KEYS}
     assert set(got) <= set(want) and set(want) - set(got) <= {"obj_acc_loss"}
     for k, v in want.items():
         if k not in got:

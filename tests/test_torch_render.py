@@ -28,6 +28,7 @@ from street_gaussians_torch.convert import frame_from_numpy, scene_from_numpy
 from street_gaussians_torch.data import synthetic as tsyn
 from street_gaussians_torch.models import renderer as trend
 from street_gaussians_torch.models.sky_cubemap import build_sky_table
+from street_gaussians_torch.utils import trace
 from street_gaussians_tpu.data.synthetic import make_synthetic_scene
 from street_gaussians_tpu.models import renderer as jrend
 from street_gaussians_tpu.models.sky_cubemap import SkyParams
@@ -198,7 +199,7 @@ def test_render_views_without_device_raises_when_cuda_absent(monkeypatch):
 
 
 def test_trace_summary_counts_busy_time_and_stages(tmp_path):
-    """serve.trace_summary on a hand-made Chrome trace: overlapping
+    """utils.trace.trace_summary on a hand-made Chrome trace: overlapping
     kernels count once, stage spans collect the kernels inside them, and
     a host range collects the kernels launched while it was open."""
     events = [
@@ -214,7 +215,7 @@ def test_trace_summary_counts_busy_time_and_stages(tmp_path):
     ]
     path = tmp_path / "trace.json"
     path.write_text(json.dumps({"traceEvents": events}))
-    got = serve.trace_summary(str(path), wall_ms=1.0, views=2)
+    got = trace.trace_summary(str(path), wall_ms=1.0, views=2)
     assert got["device_busy_ms"] == pytest.approx(0.2)
     assert got["idle_share"] == pytest.approx(0.8)
     b = got["per_view"]["binning"]
@@ -225,11 +226,10 @@ def test_trace_summary_counts_busy_time_and_stages(tmp_path):
 
 
 def test_trace_stats_totals_per_step(tmp_path):
-    """script.trace_stats on a hand-made trace of 2 steps: busy time as
-    the union of device intervals, every kernel and host sync counted,
-    and the named kernels' time and launches."""
-    from street_gaussians_torch.script import trace_stats
-
+    """utils.trace.trace_stats (script.trace_stats' numbers) on a
+    hand-made trace of 2 steps: busy time as the union of device
+    intervals, every kernel and host sync counted, and the named
+    kernels' time and launches."""
     events = [
         {"cat": "kernel", "name": "segsum_tiles_kernel(float*)", "ts": 0.0, "dur": 100.0},
         {"cat": "kernel", "name": "segsum_fixup_kernel(float*)", "ts": 50.0, "dur": 100.0},
@@ -241,7 +241,7 @@ def test_trace_stats_totals_per_step(tmp_path):
     ]
     path = tmp_path / "trace.json"
     path.write_text(json.dumps({"traceEvents": events}))
-    got = trace_stats.trace_stats(str(path), 2, ["segsum", "expand_runs", "absent"])
+    got = trace.trace_stats(str(path), 2, ["segsum", "expand_runs", "absent"])
     assert got["busy_ms"] == pytest.approx(0.11)
     assert (got["kernels"], got["host_syncs"]) == (1.5, 1.0)
     assert got["named"]["segsum"] == pytest.approx({"ms": 0.1, "launches": 1.0})

@@ -19,7 +19,8 @@ tests/test_torch_waymo_loader.py); 40 Adam steps carry that forward.
 * train_log.jsonl: the same records at the same iterations, key for key
   but for obj_acc_loss before the gate (the JAX step renders the actors
   and weighs their loss by 0 there, the port skips that render; as
-  tests/test_torch_object_loss.py); integer counts (overflow, alive rows)
+  tests/test_torch_object_loss.py) and the port's own instance counters
+  (num_instances, instance_fill); integer counts (overflow, alive rows)
   equal, every other value within rtol 1e-4 (measured: 5e-6);
 * the final state against JAX's orbax checkpoint at 40, carried over
   with convert.py: parameters under chip_smoke.params_close's rules over
@@ -73,6 +74,8 @@ from test_torch_train import numpy_tree
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ITERS = 40
 INT_KEYS = ("overflow", "overflow_instance", "overflow_tile", "num_alive")
+# the port's instance counters, in its step's scalars alone (utils/trace.py)
+PORT_KEYS = {"num_instances", "instance_fill"}
 COV_RTOL = 1e-3
 MOMENT_ATOL = 1e-2
 
@@ -160,6 +163,8 @@ def test_train_log_matches_jax(parity):
     assert [r["iteration"] for r in got] == [r["iteration"] for r in want] == [10, 20, 20, 30, 40, 40]
     for w, g in zip(want, got):
         it = w["iteration"]
+        assert ("loss" in g) == (PORT_KEYS <= set(g)), it
+        g = {k: v for k, v in g.items() if k not in PORT_KEYS}
         if "loss" in w and it <= gate:
             assert set(w) - set(g) == {"obj_acc_loss"} and set(g) <= set(w), it
         else:
