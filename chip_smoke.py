@@ -5,15 +5,18 @@
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the hand-written CUDA kernels from street_gaussians_torch/csrc
-   (seven sources holding eight kernels; one nvcc each, all started
-   together), and beside them the probe build of the two main-path blend
+   (seven sources holding eight kernels, kernel 2.3 with two entries;
+   one nvcc each, all started together), and beside them the probe
+   build of the two main-path blend
    kernels, the two table kernels and the probe's kernels that times
    their blocks (script.block_times) and the
    search-only probe build of the segmented row-sum and the run expansion
    (script.search_times);
 3. holds each forward kernel against its plain PyTorch version on the
-   card, on a random ragged case, on runs of up to 16,900 lanes that the
-   blend splits into segments (pixels that stop in the first segment, in
+   card (both entries of 2.3: expand_runs, and expand_instances, which
+   the main path bins through, on packed and wide rects with the corner
+   cull on and off), on a random ragged case, on runs of up to 16,900
+   lanes that the blend splits into segments (pixels that stop in the first segment, in
    a later one and never) and on the bench frame's own inputs, where it
    also holds the blend's work list against its plain version and prints
    the run lengths and where the forward's blocks spend their time; and
@@ -180,7 +183,8 @@
    for byte to direct renders (2.1 and 2.3 launched, held against their
    plain versions on the first view's inputs); train steps from the
    trained state with a frame served after each and without, in turns;
-15. prints one `kernels` JSON line with all eight kernels (with the
+15. prints one `kernels` JSON line with all eight kernels, 2.3 as its
+   two entries (with the
    loaded sequence's launches before and after the gate, step 9's in
    training and in render_sets, step 10's F = 27 times, bounds,
    launches and the F = 4 times in turns with them, steps 11's and
@@ -444,6 +448,57 @@ def random_expand_case(seed: int, N: int, dev):
     return t(vals), t(offs), torch.tensor(total, dtype=torch.int32, device=dev), total + 4097
 
 
+def random_instances_case(seed: int, N: int, dev, grid_x: int = 40, grid_y: int = 30, corner_cull: bool = True,
+                          leading_empty: int = 0):
+    """expand_instances' (vals, offs, total, num_ids) for N Gaussians with
+    random rects on a grid_x x grid_y grid (the rect packed in one row
+    below 128 tiles a side, three rows at or above), ~30% of the runs
+    empty (the first `leading_empty` among them) and unique ids in random
+    order. With corner_cull, centers around their rects and squared radii
+    from a few pixels to the whole rect, half of them whole numbers so
+    that the cull's <= meets ties, and some rows kept or dropped whole."""
+    rng = np.random.default_rng(seed)
+    x0, y0 = rng.integers(0, grid_x, N), rng.integers(0, grid_y, N)
+    w = np.minimum(x0 + rng.integers(1, 6, N), grid_x) - x0
+    h = np.minimum(y0 + rng.integers(1, 4, N), grid_y) - y0
+    cnt = (w * h).astype(np.int32)
+    cnt[rng.uniform(size=N) < 0.3] = 0
+    cnt[:leading_empty] = 0
+    offs = (np.cumsum(cnt) - cnt).astype(np.int32)
+    total = int(offs[-1] + cnt[-1])
+    rect = [x0 + (y0 << 7) + (w << 14)] if grid_x < 128 and grid_y < 128 else [x0, y0, w]
+    rows = [rng.permutation(N), *rect]
+    if corner_cull:
+        f32 = np.float32
+        mx = (16.0 * (x0 + rng.uniform(-0.3, 1.3, N) * w)).astype(f32)
+        my = (16.0 * (y0 + rng.uniform(-0.3, 1.3, N) * h)).astype(f32)
+        r2 = ((16.0 * rng.uniform(0.05, 2.5, N) * np.maximum(w, h)) ** 2).astype(f32)
+        whole = rng.uniform(size=N) < 0.5
+        mx[whole], my[whole], r2[whole] = np.round(mx[whole]), np.round(my[whole]), np.round(r2[whole])
+        # a quarter of the rows reach exactly one of their tiles, in float32
+        # products and sums rounded one by one: a fused multiply-add flips it
+        px0 = ((x0 + rng.integers(0, w)) * 16).astype(f32)
+        py0 = ((y0 + rng.integers(0, h)) * 16).astype(f32)
+        dx = np.minimum(np.maximum(mx, px0), px0 + f32(15)) - mx
+        dy = np.minimum(np.maximum(my, py0), py0 + f32(15)) - my
+        edge = rng.uniform(size=N) < 0.25
+        r2[edge] = (dx * dx + dy * dy)[edge]
+        fate = rng.uniform(size=N)
+        r2[fate < 0.05], r2[fate > 0.95] = -1.0, 1e30
+        rows += [mx, my, r2]
+    vals = torch.as_tensor(np.stack(rows).astype(np.float32), device=dev)
+    return (vals, torch.as_tensor(offs, device=dev), torch.tensor(total, dtype=torch.int32, device=dev),
+            1 + len(rect))
+
+
+def instances_exact(args) -> bool:
+    """fill.expand_instances(*args) equals its plain version exactly."""
+    from street_gaussians_torch.ops import fill
+
+    got, want = fill.expand_instances(*args), fill.expand_instances_plain(*args)
+    return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def random_blend_case(seed: int, dev, grid_x=40, grid_y=30, F=4, max_count=700, opacity_hi=0.99,
                       opacity_lo=0.02, counts=None):
     """Ragged runs of random screen-space Gaussians (about a fifth of the
@@ -622,6 +677,15 @@ def main() -> int:
         raise AssertionError("expand_runs kernel != plain on the random case")
     torch.cuda.synchronize()
     log(f"[check] expand_runs random ragged (C=3, N=200000, S={S}): exact")
+    for grid in ((40, 30), (130, 3)):
+        for cull in (True, False):
+            vals, offs, tot, nid = random_instances_case(0, 200_000, dev, *grid, cull, leading_empty=7)
+            for S in (int(tot) - 4104, int(tot) + 333):
+                if not instances_exact((vals, offs, tot, S, nid, *grid)):
+                    raise AssertionError(f"expand_instances kernel != plain on the random case ({grid}, cull {cull})")
+    torch.cuda.synchronize()
+    log("[check] expand_instances random ragged (N=200000; grids 40x30 and 130x3, cull on and off, "
+        "total above and below S): exact")
     case = random_blend_case(1, dev)
     err_b = compare_blend(
         tile_raster2.tile_blend_instances(*case), tile_raster2.tile_blend_plain(*case),
@@ -657,6 +721,12 @@ def main() -> int:
         C, N = ex.vals.shape
         total = int(ex.total)
         log(f"[check] expand_runs bench frame (C={C}, N={N}, S={S}, total={total}): exact")
+        i_args = (ex.vals, ex.offs, ex.total, S, ex.num_ids, gx, gy)
+        if not instances_exact(i_args):
+            raise AssertionError("expand_instances kernel != plain on the bench frame")
+        i_out = fill.expand_instances(*i_args)
+        log(f"[check] expand_instances bench frame (C={C}, N={N}, S={S}, total={total}): exact; "
+            f"{int((i_out[1] >= 0).sum())} slots live after the corner cull")
         cfg = rasterize.RasterizeConfig(opts.tile_capacity, opts.instance_capacity,
                                         corner_cull=opts.corner_cull)
         bi = rasterize.blend_inputs(screen, H, W, config=cfg)
@@ -701,6 +771,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     fill.expand_runs.launches = 0
+    fill.expand_instances.launches = 0
     tile_raster2.tile_blend_instances.launches = 0
     view_ms = []
     outs = []
@@ -713,7 +784,7 @@ def main() -> int:
         outs.append(out)
         torch.cuda.synchronize()
         view_ms.append(e0.elapsed_time(e1))
-    launches = {"expand_runs": fill.expand_runs.launches,
+    launches = {"expand_instances": fill.expand_instances.launches, "expand_runs": fill.expand_runs.launches,
                 "tile_blend_instances": tile_raster2.tile_blend_instances.launches}
     serve_launches = dict(launches)
     peak = torch.cuda.max_memory_allocated(dev)
@@ -727,7 +798,7 @@ def main() -> int:
             raise AssertionError(f"view {i}: overflow {int(out['overflow'])}")
         log(f"[serve] view {i}: {view_ms[i]:.3f} ms, {int(out['num_instances'])} instances, "
             f"mean rgb {float(out['rgb'].mean()):.4f}, acc {float(out['acc'].mean()):.4f}")
-    if launches["tile_blend_instances"] != VIEWS or launches["expand_runs"] < VIEWS:
+    if launches["tile_blend_instances"] != VIEWS or launches["expand_instances"] < VIEWS:
         raise AssertionError(f"main path launches {launches} for {VIEWS} views")
     log(f"[serve] {VIEWS} views: mean {sum(view_ms) / VIEWS:.3f} ms/view "
         f"(min {min(view_ms):.3f}, max {max(view_ms):.3f}); peak memory {peak / 2**30:.3f} GiB; "
@@ -751,9 +822,19 @@ def main() -> int:
         log(f"[probe] expand_runs bench frame: whole {a_ms:.4f} ms, search only {a_search:.4f} ms")
         a_plain = cuda_ms(lambda: fill.expand_runs_plain(ex.vals, ex.offs, ex.total, S), 20)
         a_lib = cuda_ms(lib_out, 20)
+        # expand_instances; its yardstick is the one PyTorch call its run
+        # offsets replace: the running maximum over the S slots
+        i_ms = cuda_ms(lambda: fill.expand_instances(*i_args), 50)
+        i_search = search_only_ms(lambda: fill.expand_instances(*i_args), 50)
+        i_plain = cuda_ms(lambda: fill.expand_instances_plain(*i_args), 20)
+        s_idx = torch.arange(S, dtype=torch.int32, device=dev)
+        i_lib = cuda_ms(lambda: torch.cummax(torch.where(i_out[1] >= 0, s_idx, 0), dim=0), 20)
+        log(f"[probe] expand_instances bench frame: whole {i_ms:.4f} ms, search only {i_search:.4f} ms; "
+            f"plain {i_plain:.4f} ms; torch.cummax over the {S} slots {i_lib:.4f} ms")
         b_ms = cuda_ms(lambda: tile_raster2.tile_blend_instances(*b_args), 20)
         b_plain = cuda_ms(lambda: tile_raster2.tile_blend_plain(*b_args), 2)
     a_bytes = 4 * (C * N + N + 1 + C * S)
+    i_bytes = 4 * (C * N + N + 1 + 2 * S)  # vals and offs read, the two [S] ids written
     a_ops = S * math.ceil(math.log2(N + 1))  # one compare per search step
     b_bytes = 4 * (live * (6 + F) + T * 256 * (F + 1) + 2 * T)
     # f32 operations (exp / log1p counted as one): 17 for every pair a
@@ -792,10 +873,14 @@ def main() -> int:
     kernels = []
     train = {"path": f"{TRAIN_STEPS} train steps"}
     for name, src, rep, n, err, ms, plain, lib, (bms, by), extra in (
+        ("expand_instances", "street_gaussians_torch/csrc/fill.cu",
+         "street_gaussians_tpu/ops/fill.py:55", t["launches"]["expand_instances"], 0.0,
+         i_ms, i_plain, i_lib, bound(i_bytes, a_ops),
+         {**train, "serve_launches": serve_launches["expand_instances"], "search_only_ms": i_search}),
         ("expand_runs", "street_gaussians_torch/csrc/fill.cu",
-         "street_gaussians_tpu/ops/fill.py:55", t["launches"]["expand_runs"], err_a,
+         "street_gaussians_tpu/ops/fill.py:55", serve_launches["expand_runs"], err_a,
          a_ms, a_plain, a_lib, bound(a_bytes, a_ops),
-         {**train, "serve_launches": serve_launches["expand_runs"], "search_only_ms": a_search}),
+         {"path": "script.search_times; the main path bins through expand_instances", "search_only_ms": a_search}),
         ("tile_blend_instances", "street_gaussians_torch/csrc/tile_blend.cu",
          "street_gaussians_tpu/ops/tile_raster2.py:318", t["launches"]["tile_blend_instances"], err_b,
          b_ms, b_plain, None, bound(b_bytes, b_ops),
@@ -831,7 +916,7 @@ def main() -> int:
         step13_launches = {k: v[name] for k, v in s13["launches"].items() if name in v}
         if step13_launches:
             oracle = s13["oracle_errors"]
-            if name in ("expand_runs", "tile_blend_instances"):
+            if name in ("expand_instances", "tile_blend_instances"):
                 oracle_err = max(v for k, v in oracle.items() if k != "gradients_scaled")
             else:
                 oracle_err = oracle["gradients_scaled"]
@@ -847,7 +932,8 @@ def main() -> int:
         log(f"[kernel] {name}: {ms:.4f} ms (plain {plain:.4f} ms, library "
             f"{'n/a' if lib is None else f'{lib:.4f} ms'}), bound {bms:.4f} ms by {by}; "
             f"{n} launches in {extra['path']}")
-    log(f"[kernel] bench-frame counts: expand_runs bytes {a_bytes}, compares {a_ops}; "
+    log(f"[kernel] bench-frame counts: expand_runs bytes {a_bytes}, compares {a_ops}; expand_instances bytes "
+        f"{i_bytes}; "
         f"tile_blend bytes {b_bytes}, f32 ops {b_ops}")
 
     log(f"[waymo] summary: {json.dumps({k: v for k, v in seq.items() if k not in ('launches', 'errors')})}")
@@ -1097,7 +1183,7 @@ def waymo_phase(dev, tmp: str) -> dict:
     from street_gaussians_torch.runner import build_initial_params, render_opts_from_cfg
     from street_gaussians_torch.train_lib import Draws, flatten_params, init_train_state, make_train_step
 
-    kernels = (fill.expand_runs, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd,
+    kernels = (fill.expand_instances, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd,
                segsum.segment_rowsum)
     root = os.path.join(tmp, "seq")
     # ---- 8a. write ----
@@ -1219,7 +1305,8 @@ def waymo_phase(dev, tmp: str) -> dict:
     if (before["tile_blend_instances"] != TRAIN_STEPS or before["tile_blend_bwd"] != TRAIN_STEPS
             or after["tile_blend_instances"] != 2 * TRAIN_STEPS or after["tile_blend_bwd"] != 2 * TRAIN_STEPS
             or before["segment_rowsum"] != 2 * TRAIN_STEPS or after["segment_rowsum"] != 3 * TRAIN_STEPS
-            or before["expand_runs"] < TRAIN_STEPS or after["expand_runs"] != 2 * before["expand_runs"]):
+            or before["expand_instances"] < TRAIN_STEPS
+            or after["expand_instances"] != 2 * before["expand_instances"]):
         raise AssertionError(f"waymo launches before the gate {before}, after {after}")
     log(f"[waymo] peak memory {peak / 2**30:.3f} GiB over the {2 * TRAIN_STEPS} timed steps; the blend "
         f"kernels launch twice a step after the gate")
@@ -1229,7 +1316,7 @@ def waymo_phase(dev, tmp: str) -> dict:
     draws = Draws(torch.rand(C, generator=gen, device=dev) < 0.5,
                   torch.rand((H, W, 2), generator=gen, device=dev) - 0.5)
     # the first run's kernel inputs, full render and object render, for 8e
-    recs = {"expand_runs": CallRecorder(fill.expand_runs, [fill]),
+    recs = {"expand_instances": CallRecorder(fill.expand_instances, [fill]),
             "forward": CallRecorder(tile_raster2._forward, [tile_raster2]),
             "tile_blend_bwd": CallRecorder(tile_raster2.tile_blend_bwd, [tile_raster2]),
             "segment_rowsum": CallRecorder(segsum.segment_rowsum, [rasterize, sky_cubemap])}
@@ -1365,7 +1452,7 @@ def runner_phase(dev, root: str, tmp: str, smi: str) -> dict:
     from street_gaussians_torch.utils import lpips as lpips_lib
     from street_gaussians_torch.utils import ply
 
-    kernels = (fill.expand_runs, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd,
+    kernels = (fill.expand_instances, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd,
                segsum.segment_rowsum)
     out = os.path.join(tmp, "runner")
     recipe = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "example", "waymo_train_002.yaml")
@@ -1505,7 +1592,7 @@ def runner_phase(dev, root: str, tmp: str, smi: str) -> dict:
     sync()
     t_render = time.perf_counter() - t0
     render_launches = {k.__name__: k.launches for k in kernels}
-    if cuda and (render_launches["expand_runs"] == 0 or render_launches["tile_blend_instances"] == 0):
+    if cuda and (render_launches["expand_instances"] == 0 or render_launches["tile_blend_instances"] == 0):
         raise AssertionError(f"runner: render_sets launched {render_launches}")
     pngs = os.listdir(os.path.join(out, "train_renders"))
     if len(pngs) != 3 * SEQ_FRAMES:
@@ -1865,7 +1952,8 @@ def wide_phase(dev, root: str, tmp: str, smi: str) -> dict:
     make_step = runner.make_train_step
     # the inputs of the step from state.step == WIDE_GATE: the first with the object render
     runner.make_train_step = recording_make_step(make_step, WIDE_GATE, recs)
-    counted = (fill.expand_runs, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd, segsum.segment_rowsum)
+    counted = (fill.expand_instances, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd,
+               segsum.segment_rowsum)
     for k in counted:
         k.launches = 0
     np.random.seed(0)
@@ -2025,7 +2113,7 @@ def recording_make_step(make_step, at_step: int, recs: dict):
         def step(state, *args, **kwargs):
             if state.step != at_step:
                 return step_fn(state, *args, **kwargs)
-            recs.update({"expand_runs": CallRecorder(fill.expand_runs, [fill]),
+            recs.update({"expand_instances": CallRecorder(fill.expand_instances, [fill]),
                          "forward": CallRecorder(tile_raster2._forward, [tile_raster2]),
                          "tile_blend_bwd": CallRecorder(tile_raster2.tile_blend_bwd, [tile_raster2]),
                          "segment_rowsum": CallRecorder(segsum.segment_rowsum, [rasterize, sky_cubemap])})
@@ -2170,7 +2258,7 @@ def gate_step_checks(recs: dict, capacity: int, where: str, renders=("full", "ob
     forward calls: the full render and the object render at the gate),
     against their plain versions at the tolerances of steps 3 and 5,
     with the run lengths of each render. `recs`: CallRecorders of
-    fill.expand_runs and tile_raster2._forward, and for a train step
+    fill.expand_instances and tile_raster2._forward, and for a train step
     also of tile_raster2.tile_blend_bwd and segsum.segment_rowsum (one
     call a render, and one for the sky). Returns each kernel's largest
     error."""
@@ -2178,19 +2266,19 @@ def gate_step_checks(recs: dict, capacity: int, where: str, renders=("full", "ob
     from street_gaussians_torch.script import block_times
 
     r = len(renders)
-    want = {"expand_runs": r, "forward": r, "tile_blend_bwd": r, "segment_rowsum": r + 1}
+    want = {"expand_instances": r, "forward": r, "tile_blend_bwd": r, "segment_rowsum": r + 1}
     n = {k: len(rec.calls) for k, rec in recs.items()}
-    if not {"expand_runs", "forward"} <= set(n) or n != {k: want[k] for k in n}:
+    if not {"expand_instances", "forward"} <= set(n) or n != {k: want[k] for k in n}:
         raise AssertionError(f"{where}: {n} kernel calls for the renders {renders}")
     err = {}
     with torch.no_grad():
-        for label, (args, _) in zip(renders, recs["expand_runs"].calls):
-            vals, offs, total, S = args
-            if not torch.equal(fill.expand_runs(*args), fill.expand_runs_plain(*args)):
-                raise AssertionError(f"expand_runs kernel != plain, {where}, {label} render")
-            log(f"[check] expand_runs {where}, {label} render (C={vals.shape[0]}, N={vals.shape[1]}, S={S}, "
+        for label, (args, _) in zip(renders, recs["expand_instances"].calls):
+            vals, offs, total, S = args[:4]
+            if not instances_exact(args):
+                raise AssertionError(f"expand_instances kernel != plain, {where}, {label} render")
+            log(f"[check] expand_instances {where}, {label} render (C={vals.shape[0]}, N={vals.shape[1]}, S={S}, "
                 f"total={int(total)}): exact")
-        err["expand_runs"] = 0.0
+        err["expand_instances"] = 0.0
         label_of, err["tile_blend_instances"] = {}, 0.0
         for label, (args, _) in zip(renders, recs["forward"].calls):
             payload, starts, counts, F, gx, T = args
@@ -2392,7 +2480,7 @@ def train_phase(dev) -> dict:
         rec.calls.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    for k in (fill.expand_runs, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd,
+    for k in (fill.expand_instances, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd,
               segsum.segment_rowsum):
         k.launches = 0
     step_ms, records = [], []
@@ -2405,7 +2493,7 @@ def train_phase(dev) -> dict:
         step_ms.append(e0.elapsed_time(e1))
         records.append(sc)
     launches = {k.__name__: k.launches for k in (
-        fill.expand_runs, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd,
+        fill.expand_instances, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd,
         segsum.segment_rowsum)}
     peak = torch.cuda.max_memory_allocated(dev)
     for i, sc in enumerate(records):
@@ -2418,7 +2506,7 @@ def train_phase(dev) -> dict:
         if not torch.isfinite(v).all():
             raise AssertionError(f"non-finite parameter {k} after training")
     if (launches["tile_blend_bwd"] != TRAIN_STEPS or launches["tile_blend_instances"] != TRAIN_STEPS
-            or launches["segment_rowsum"] < 2 * TRAIN_STEPS or launches["expand_runs"] < TRAIN_STEPS):
+            or launches["segment_rowsum"] < 2 * TRAIN_STEPS or launches["expand_instances"] < TRAIN_STEPS):
         raise AssertionError(f"train path launches {launches} for {TRAIN_STEPS} steps")
     log(f"[train] {TRAIN_STEPS} steps: mean {sum(step_ms) / TRAIN_STEPS:.3f} ms/step (min "
         f"{min(step_ms):.3f}, max {max(step_ms):.3f}); peak memory {peak / 2**30:.3f} GiB; "
@@ -2636,14 +2724,14 @@ def view_gt(cell, i: int):
 def _launch_counts() -> dict:
     from street_gaussians_torch.ops import fill, segsum, tile_raster2
 
-    return {k.__name__: k.launches for k in (fill.expand_runs, tile_raster2.tile_blend_instances,
+    return {k.__name__: k.launches for k in (fill.expand_instances, tile_raster2.tile_blend_instances,
                                              tile_raster2.tile_blend_bwd, segsum.segment_rowsum)}
 
 
 def _zero_counts() -> None:
     from street_gaussians_torch.ops import fill, segsum, tile_raster2
 
-    for k in (fill.expand_runs, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd,
+    for k in (fill.expand_instances, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd,
               segsum.segment_rowsum):
         k.launches = 0
 
@@ -2744,7 +2832,7 @@ def serve_bands(dev, scene, params) -> dict:
         return lambda f: band(pr, sc.aux, f, sky_table=table)
 
     C = serve.SERVE_OPTS.instance_capacity
-    err, launches, out = {"expand_runs": 0.0, "tile_blend_instances": 0.0}, {}, {"split_capacity": {}}
+    err, launches, out = {"expand_instances": 0.0, "tile_blend_instances": 0.0}, {}, {"split_capacity": {}}
     band_opts = {1: serve.SERVE_OPTS}
     with torch.no_grad():
         whole = renderer(serve.SERVE_OPTS, 1)(frame)
@@ -2775,7 +2863,7 @@ def serve_bands(dev, scene, params) -> dict:
                 torch.cuda.synchronize()
                 n = _launch_counts()
                 launches[f"D{D}_ds{ds}"] = n
-                if n["tile_blend_instances"] != D or n["expand_runs"] < D:
+                if n["tile_blend_instances"] != D or n["expand_instances"] < D:
                     raise AssertionError(f"a view in {D} bands launched {n}")
                 if not torch.equal(got["radii"], whole["radii"]):
                     raise AssertionError(f"{D} bands: radii differ from the whole frame's")
@@ -2795,7 +2883,7 @@ def serve_bands(dev, scene, params) -> dict:
                         f"up to {float(d):.3e}")
 
         # kernels 2.1 and 2.3 on each band's own inputs (4 bands)
-        recs = {"expand_runs": CallRecorder(fill.expand_runs, [fill]),
+        recs = {"expand_instances": CallRecorder(fill.expand_instances, [fill]),
                 "forward": CallRecorder(tile_raster2._forward, [tile_raster2])}
         try:
             renderer(band_opts[4], 4)(frame)
@@ -2803,21 +2891,21 @@ def serve_bands(dev, scene, params) -> dict:
             for r in recs.values():
                 r.restore()
         lay = tiles.band_layout(H, 4)
-        for d, ((a_args, _), (b_args, _)) in enumerate(zip(recs["expand_runs"].calls, recs["forward"].calls)):
+        for d, ((a_args, _), (b_args, _)) in enumerate(zip(recs["expand_instances"].calls, recs["forward"].calls)):
             where = f"band {d} of 4 (tile rows {lay.band(d)}{', past the image' if (d + 1) * lay.gy_local > lay.gy else ''})"
-            if not torch.equal(fill.expand_runs(*a_args), fill.expand_runs_plain(*a_args)):
-                raise AssertionError(f"expand_runs kernel != plain on the bench frame's {where}")
+            if not instances_exact(a_args):
+                raise AssertionError(f"expand_instances kernel != plain on the bench frame's {where}")
             err["tile_blend_instances"] = max(err["tile_blend_instances"], compare_blend(
                 tile_raster2.tile_blend_instances(*b_args), tile_raster2.tile_blend_plain(*b_args), b_args[3],
                 f"tile_blend bench frame's {where} ({b_args[5]} tiles, {int(b_args[2].sum())} instances)"))
-        log(f"[check] expand_runs on the bench frame's 4 bands' own inputs: exact")
+        log(f"[check] expand_instances on the bench frame's 4 bands' own inputs: exact")
 
         # an empty band: a 32-row frame in 4 bands (bands 2 and 3 past it)
         sc, pr = serve.bench_scene(seed=3, device=dev, sky_resolution=16, num_bkgd=600, num_actors=2, H=32, W=48)
         small_table = build_sky_table(pr.sky.cubemap)
         ds1 = dataclasses.replace(serve.SERVE_OPTS, sky_downsample=1)
         recs = {"forward": CallRecorder(tile_raster2._forward, [tile_raster2]),
-                "expand_runs": CallRecorder(fill.expand_runs, [fill])}
+                "expand_instances": CallRecorder(fill.expand_instances, [fill])}
         try:
             _zero_counts()
             got = renderer(ds1, 4, sc, pr, small_table)(sc.frames[1])
@@ -2835,9 +2923,9 @@ def serve_bands(dev, scene, params) -> dict:
             err["tile_blend_instances"] = max(err["tile_blend_instances"], compare_blend(
                 tile_raster2.tile_blend_instances(*a), tile_raster2.tile_blend_plain(*a), a[3],
                 f"tile_blend on an empty band ({a[5]} tiles)"))
-        for a, _ in recs["expand_runs"].calls[2:]:
-            if not torch.equal(fill.expand_runs(*a), fill.expand_runs_plain(*a)):
-                raise AssertionError("expand_runs kernel != plain on an empty band")
+        for a, _ in recs["expand_instances"].calls[2:]:
+            if not instances_exact(a):
+                raise AssertionError("expand_instances kernel != plain on an empty band")
         log(f"[check] empty bands: instances per band {counts}, launches {n}; kernels equal their plain versions")
         del sc, pr, small_table, got, whole
 
@@ -3205,7 +3293,7 @@ def serve_gauss(dev, scene, params) -> dict:
         o = opts if T == 1 else dataclasses.replace(opts, instance_capacity=T * _round_up(need, 128))
         r = gauss.make_gauss_sharded_render(scene.table, scene.pose_data, o, G, tile_shards=T)
         fns[name] = (lambda r: lambda f: r(params, scene.aux, f, sky_table=sky_table))(r)
-    launches, err = {}, {"expand_runs": 0.0, "tile_blend_instances": 0.0}
+    launches, err = {}, {"expand_instances": 0.0, "tile_blend_instances": 0.0}
     with torch.no_grad():
         whole = fns["whole"](frame)
         for name, G, T in GAUSS_SERVE:
@@ -3214,7 +3302,7 @@ def serve_gauss(dev, scene, params) -> dict:
             got = fns[name](frame)
             torch.cuda.synchronize()
             n = launches[name] = _launch_counts()
-            if n["tile_blend_instances"] != T or n["expand_runs"] < T:
+            if n["tile_blend_instances"] != T or n["expand_instances"] < T:
                 raise AssertionError(f"{name}: a view launched {n}")
             counts = {k: (int(got[k]), int(whole[k])) for k in COUNTS}
             if any(a != b for a, b in counts.values()) or not torch.equal(got["radii"], whole["radii"]):
@@ -3234,21 +3322,21 @@ def serve_gauss(dev, scene, params) -> dict:
                 log(f"[gauss] {what}: radii and counts equal; max abs err {e:.3e} but on the band-edge rows {edges} "
                     "(the reference's own upsample, 11a)")
         # kernels 2.1 and 2.3 on the gauss=4 render's own inputs
-        recs = {"expand_runs": CallRecorder(fill.expand_runs, [fill]),
+        recs = {"expand_instances": CallRecorder(fill.expand_instances, [fill]),
                 "forward": CallRecorder(tile_raster2._forward, [tile_raster2])}
         try:
             fns["gauss=4"](frame)
         finally:
             for r in recs.values():
                 r.restore()
-        for a_args, _ in recs["expand_runs"].calls:
-            if not torch.equal(fill.expand_runs(*a_args), fill.expand_runs_plain(*a_args)):
-                raise AssertionError("expand_runs kernel != plain on the gauss=4 render's inputs")
+        for a_args, _ in recs["expand_instances"].calls:
+            if not instances_exact(a_args):
+                raise AssertionError("expand_instances kernel != plain on the gauss=4 render's inputs")
         for b_args, _ in recs["forward"].calls:
             err["tile_blend_instances"] = max(err["tile_blend_instances"], compare_blend(
                 tile_raster2.tile_blend_instances(*b_args), tile_raster2.tile_blend_plain(*b_args), b_args[3],
                 f"tile_blend on the gauss=4 render's inputs ({b_args[5]} tiles, {int(b_args[2].sum())} instances)"))
-        log("[check] expand_runs on the gauss=4 render's own inputs: exact")
+        log("[check] expand_instances on the gauss=4 render's own inputs: exact")
         del recs, whole, got
 
         ms = {k: [] for k in fns}
@@ -4256,7 +4344,7 @@ def prep_phase(dev, tmp: str, smi: str) -> dict:
         _zero_counts()
         for i in range(len(serve_msgs)):
             if i == 0:
-                vrecs.update(expand_runs=CallRecorder(fill.expand_runs, [fill]),
+                vrecs.update(expand_instances=CallRecorder(fill.expand_instances, [fill]),
                              forward=CallRecorder(tile_raster2._forward, [tile_raster2]))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4269,7 +4357,7 @@ def prep_phase(dev, tmp: str, smi: str) -> dict:
             serve_ms.append((time.perf_counter() - t0) * 1e3)
         res["viewer_launches"] = _launch_counts()
         if (res["viewer_launches"]["tile_blend_instances"] != len(serve_msgs)
-                or res["viewer_launches"]["expand_runs"] < len(serve_msgs)):
+                or res["viewer_launches"]["expand_instances"] < len(serve_msgs)):
             raise AssertionError(f"prep: {len(serve_msgs)} viewer renders made launches {res['viewer_launches']}")
         for k, e in gate_step_checks(vrecs, C, f"viewer {PREP_VIEW[1]}x{PREP_VIEW[0]}", renders=("full",)).items():
             errors[k] = max(errors.get(k, 0.0), e)

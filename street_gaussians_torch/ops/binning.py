@@ -6,8 +6,9 @@ table (`bin_gaussians`).
 Port of street_gaussians_tpu/ops/binning.py. Order and integer outputs
 are the JAX package's exactly: Gaussians are depth-sorted once (stable,
 by the float32 bits of the depth), instances are enumerated in
-depth-rank order through the run expansion (ops/fill.expand_runs,
-kernel A), and one stable sort by tile id gives tile-major, depth-minor,
+depth-rank order by the run expansion (ops/fill.expand_instances,
+kernel A: each slot's tile and Gaussian from its run, no scan over the
+slots), and one stable sort by tile id gives tile-major, depth-minor,
 original-index-tertiary order. Both layouts share that front half
 (`_sorted_instances`); only the instance layout has the corner cull.
 """
@@ -129,48 +130,16 @@ class SortedInstances(NamedTuple):
 def _sorted_instances(
     screen: GaussianScreenData, grid_x: int, grid_y: int, instance_capacity: int, corner_cull: bool
 ) -> SortedInstances:
-    """Shared front half of both layouts: depth sort, run expansion, the
-    optional corner cull and one stable tile sort."""
+    """Shared front half of both layouts: depth sort, the instances'
+    tiles and Gaussians from the runs (with the optional corner cull)
+    and one stable tile sort."""
     dev = screen.depth.device
     i32 = torch.int32
     num_tiles = grid_x * grid_y
     S = instance_capacity
 
     ex = expand_inputs(screen, grid_x, grid_y, corner_cull)
-    total = ex.total
-    filled = fill_lib.expand_runs(ex.vals, ex.offs, total, S)
-    gauss_i = filled[0].to(i32)
-    if ex.num_ids == 2:
-        pr = filled[1].to(i32)
-        rx = pr & 127
-        ry = (pr >> 7) & 127
-        rw = torch.clamp(pr >> 14, min=1)
-    else:
-        rx = filled[1].to(i32)
-        ry = filled[2].to(i32)
-        rw = torch.clamp(filled[3].to(i32), min=1)
-
-    s = torch.arange(S, dtype=i32, device=dev)
-    inst_valid = s < total
-    # within-run offset: runs start where the expanded id changes
-    prev_g = torch.cat([torch.full((1,), -1, dtype=i32, device=dev), gauss_i[:-1]])
-    run_start = torch.cummax(torch.where(gauss_i != prev_g, s, 0), dim=0).values
-    k = s - run_start
-    tx = rx + k % rw
-    ty = ry + k // rw
-    live = inst_valid
-    if corner_cull:
-        # distance from the center to the tile's pixel box
-        # [16 tx, 16 tx + 15] x [16 ty, 16 ty + 15]
-        nid = ex.num_ids
-        mx_i, my_i, r2_i = filled[nid], filled[nid + 1], filled[nid + 2]
-        px0 = tx.to(torch.float32) * 16.0
-        py0 = ty.to(torch.float32) * 16.0
-        dx = torch.minimum(torch.maximum(mx_i, px0), px0 + 15.0) - mx_i
-        dy = torch.minimum(torch.maximum(my_i, py0), py0 + 15.0) - my_i
-        live = live & (dx * dx + dy * dy <= r2_i)
-    tile_id = torch.where(live, ty * grid_x + tx, num_tiles).to(i32)
-    gauss_id = torch.where(live, gauss_i, -1).to(i32)
+    tile_id, gauss_id = fill_lib.expand_instances(ex.vals, ex.offs, ex.total, S, ex.num_ids, grid_x, grid_y)
 
     # one stable tile sort: enumeration order is already depth order
     st, perm = torch.sort(tile_id, stable=True)
@@ -181,7 +150,7 @@ def _sorted_instances(
     queries = torch.arange(num_tiles + 1, dtype=i32, device=dev)
     tile_start = torch.searchsorted(st, queries, side="left").to(i32)
     tile_start = torch.clamp(tile_start, max=S)
-    return SortedInstances(st, sg, tile_start, total)
+    return SortedInstances(st, sg, tile_start, ex.total)
 
 
 def bin_gaussians_instances(
@@ -204,15 +173,11 @@ def bin_gaussians_instances(
     st, sg, tile_start, total = _sorted_instances(screen, grid_x, grid_y, S, corner_cull)
     counts_all = tile_start[1:] - tile_start[:-1]
 
-    if tile_capacity >= instance_capacity:
-        keep = st < num_tiles
-    else:
+    keep = st < num_tiles
+    if tile_capacity < instance_capacity:
+        # a live row's rank in its tile's run: the run starts at tile_start
         s = torch.arange(S, dtype=i32, device=dev)
-        prev_t = torch.cat([torch.full((1,), -1, dtype=i32, device=dev), st[:-1]])
-        boundary = (st != prev_t) & (st < num_tiles)
-        running_start = torch.cummax(torch.where(boundary, s, 0), dim=0).values
-        rank = s - running_start
-        keep = (st < num_tiles) & (rank < tile_capacity)
+        keep = keep & (s - tile_start[st.long()] < tile_capacity)
     inst_gauss = torch.where(keep, sg, -1)
     return InstanceBinning(
         inst_gauss, tile_start=tile_start[:-1], **_counts(counts_all, total, S, tile_capacity)

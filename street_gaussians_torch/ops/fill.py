@@ -15,8 +15,15 @@ end (`merge_path_runs_plain` is that partition in plain PyTorch,
 the H100: memory (read vals [C, N], write out [C, S]); the copy is exact
 and deterministic, and the work is even however ragged the runs are.
 
-`expand_runs` runs the plain PyTorch version for a CPU tensor and the
-kernel for a CUDA tensor.
+`expand_instances` is the same merge with binning's derivation in its
+last step: each slot's tile and Gaussian from its run's rect and its
+offset in the run, s - offs[j] (no scan over the slots), the optional
+corner cull applied; it writes two [S] int32 arrays. Binning calls it;
+`expand_runs` stays for its contract, its tests and
+script.search_times.
+
+Both run the plain PyTorch version for a CPU tensor and the kernel for
+a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -37,9 +44,11 @@ FILL_ITEMS = 8
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    p = ctypes.c_void_p
-    lib.expand_runs_f32.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.expand_runs_f32.argtypes = [p, p, p, p, i, i, i, p]
     lib.expand_runs_f32.restype = ctypes.c_int
+    lib.expand_instances_i32.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.expand_instances_i32.restype = ctypes.c_int
 
 
 def _check_args(vals, offs, total, num_slots):
@@ -65,20 +74,27 @@ def _check_args(vals, offs, total, num_slots):
         raise ValueError(f"expand_runs: {N} runs + {num_slots} slots >= 2**31 - 2**16")
 
 
+def _slot_runs_plain(offs: torch.Tensor, total: torch.Tensor, num_slots: int):
+    """Each slot s, its run (searchsorted over the run ends, clamped to
+    the last run) and whether that run covers it. Needs N > 0."""
+    N = offs.shape[0]
+    s = torch.arange(num_slots, dtype=torch.int32, device=offs.device)
+    ends = torch.cat([offs[1:], total.reshape(1).to(offs.dtype)])
+    j = torch.searchsorted(ends, s, right=True)
+    run = j.clamp(max=N - 1)
+    return s, run, (j < N) & (offs[run] <= s)
+
+
 def expand_runs_plain(
     vals: torch.Tensor, offs: torch.Tensor, total: torch.Tensor, num_slots: int
 ) -> torch.Tensor:
     """Plain PyTorch version: searchsorted over the run ends, then a
     gather. Same contract as `expand_runs`."""
     C, N = vals.shape
-    s = torch.arange(num_slots, dtype=torch.int32, device=vals.device)
     if N == 0:
         return vals.new_zeros((C, num_slots))
-    ends = torch.cat([offs[1:], total.reshape(1).to(offs.dtype)])
-    j = torch.searchsorted(ends, s, right=True)
-    jc = j.clamp(max=N - 1)
-    hit = (j < N) & (offs[jc] <= s)
-    return torch.where(hit[None, :], vals[:, jc], vals.new_zeros(()))
+    _, run, hit = _slot_runs_plain(offs, total, num_slots)
+    return torch.where(hit[None, :], vals[:, run], vals.new_zeros(()))
 
 
 def merge_path_runs_plain(offs: torch.Tensor, total: torch.Tensor, num_slots: int, diags: torch.Tensor):
@@ -157,3 +173,89 @@ def expand_runs(
 
 
 expand_runs.launches = 0
+
+
+def _check_instance_args(vals, offs, total, num_slots, num_ids, grid_x, grid_y):
+    _check_args(vals, offs, total, num_slots)
+    if num_ids not in (2, 4) or vals.shape[0] not in (num_ids, num_ids + 3):
+        raise ValueError(
+            f"expand_instances: vals must hold the id, 1 or 3 rect rows and 0 or 3 cull rows "
+            f"(num_ids {num_ids}), got {vals.shape[0]} rows"
+        )
+    if num_ids == 2 and (grid_x >= 128 or grid_y >= 128):
+        raise ValueError(f"expand_instances: a packed rect holds grids below 128 a side, got {grid_x}x{grid_y}")
+    if grid_x * grid_y >= 2**31:
+        raise ValueError("expand_instances: num_tiles >= 2**31")
+
+
+def expand_instances_plain(
+    vals: torch.Tensor, offs: torch.Tensor, total: torch.Tensor, num_slots: int,
+    num_ids: int, grid_x: int, grid_y: int,
+):
+    """Plain PyTorch version: each slot's run from searchsorted, as in
+    `expand_runs_plain`, then the same derivation as the kernel. Same
+    contract as `expand_instances`."""
+    _check_instance_args(vals, offs, total, num_slots, num_ids, grid_x, grid_y)
+    i32 = torch.int32
+    C, N = vals.shape
+    num_tiles = grid_x * grid_y
+    if N == 0:
+        return (torch.full((num_slots,), num_tiles, dtype=i32, device=vals.device),
+                torch.full((num_slots,), -1, dtype=i32, device=vals.device))
+    s, run, live = _slot_runs_plain(offs, total, num_slots)
+    v = vals[:, run]
+    k = s - offs[run]
+    if num_ids == 2:
+        pr = v[1].to(i32)
+        rx, ry, rw = pr & 127, (pr >> 7) & 127, torch.clamp(pr >> 14, min=1)
+    else:
+        rx, ry, rw = v[1].to(i32), v[2].to(i32), torch.clamp(v[3].to(i32), min=1)
+    tx = rx + k % rw
+    ty = ry + k // rw
+    if C > num_ids:
+        # distance from the center to the tile's pixel box
+        # [16 tx, 16 tx + 15] x [16 ty, 16 ty + 15]
+        mx, my, r2 = v[num_ids], v[num_ids + 1], v[num_ids + 2]
+        px0 = tx.to(torch.float32) * 16.0
+        py0 = ty.to(torch.float32) * 16.0
+        dx = torch.minimum(torch.maximum(mx, px0), px0 + 15.0) - mx
+        dy = torch.minimum(torch.maximum(my, py0), py0 + 15.0) - my
+        live = live & (dx * dx + dy * dy <= r2)
+    tile_id = torch.where(live, ty * grid_x + tx, num_tiles).to(i32)
+    gauss_id = torch.where(live, v[0].to(i32), -1).to(i32)
+    return tile_id, gauss_id
+
+
+def expand_instances(
+    vals: torch.Tensor, offs: torch.Tensor, total: torch.Tensor, num_slots: int,
+    num_ids: int, grid_x: int, grid_y: int,
+):
+    """Binning's instances straight from the runs (ops/binning.expand_inputs
+    makes the arguments). vals: [C, N] f32, the id, then the rect packed
+    as x + (y << 7) + (w << 14) (num_ids 2, grids below 128 a side) or as
+    x, y, w (num_ids 4), then optionally the corner cull's center x, y
+    and squared radius. offs, total: as in `expand_runs`. Slot s of run
+    j is the k-th tile, k = s - offs[j], of Gaussian j's rect, row-major
+    over its width. Returns ([S] int32 tile id, [S] int32 gaussian id),
+    num_tiles and -1 where no run covers the slot or the cull drops it."""
+    if vals.device.type == "cpu":
+        return expand_instances_plain(vals, offs, total, num_slots, num_ids, grid_x, grid_y)
+    _check_instance_args(vals, offs, total, num_slots, num_ids, grid_x, grid_y)
+    _build.require_cuda(vals, "expand_instances")
+    vals = vals.contiguous()
+    offs = offs.contiguous()
+    total = total.reshape(()).contiguous()
+    C, N = vals.shape
+    tile_id = torch.empty((num_slots,), dtype=torch.int32, device=vals.device)
+    gauss_id = torch.empty((num_slots,), dtype=torch.int32, device=vals.device)
+    lib = _build.load("fill", _bind, BUILD_FLAGS)
+    err = lib.expand_instances_i32(
+        _build.ptr(vals), _build.ptr(offs), _build.ptr(total), _build.ptr(tile_id), _build.ptr(gauss_id),
+        N, num_slots, num_ids, int(C > num_ids), grid_x, grid_x * grid_y, _build.stream_of(vals),
+    )
+    _build.check(err, "expand_instances")
+    expand_instances.launches += 1
+    return tile_id, gauss_id
+
+
+expand_instances.launches = 0

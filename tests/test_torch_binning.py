@@ -2,6 +2,8 @@
 against the JAX package's (run expansion in Pallas interpret mode), fed
 the same screen. Every output is an integer (the lists, tile_start,
 tile_count and the overflow counters), so the two must be equal exactly.
+Both layouts also equal, exactly, the scan formulation that the run
+expansion replaced (tests/binning_scan_oracle.py).
 """
 
 import jax.numpy as jnp
@@ -9,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from binning_scan_oracle import scan_bin_gaussians, scan_bin_gaussians_instances, scan_rank
 from street_gaussians_torch.ops import binning as tbin
 from street_gaussians_torch.ops.preprocess import GaussianScreenData as TScreen
 from street_gaussians_tpu.ops import binning as jbin
@@ -93,3 +96,46 @@ def test_binning_instance_overflow_matches_jax():
 def test_binning_wide_grid_matches_jax(corner_cull):
     screen, gx, gy = wide_screen(2)
     _assert_same_binning(screen, gx, gy, 2**12, 2**12, corner_cull)
+
+
+# ---- against the scan formulation the run expansion replaced
+
+
+def _screen(kind):
+    screen, gx, gy = projected_screen(0) if kind == "projected" else wide_screen(2)
+    return TScreen(*[torch.as_tensor(np.array(x)) for x in screen]), gx, gy
+
+
+@pytest.mark.parametrize("kind", ["projected", "wide"])
+@pytest.mark.parametrize("corner_cull", [True, False])
+@pytest.mark.parametrize("S,tile_capacity", [(2**13, 2**13), (2**13, 2), (384, 64)])
+def test_binning_matches_scan_oracle(kind, corner_cull, S, tile_capacity):
+    """Both layouts equal the scan formulation field for field: the
+    tile cap by the tile_start gather, and instance overflow."""
+    screen, gx, gy = _screen(kind)
+    got = tbin.bin_gaussians_instances(screen, gx, gy, S, tile_capacity, corner_cull=corner_cull)
+    want = scan_bin_gaussians_instances(screen, gx, gy, S, tile_capacity, corner_cull=corner_cull)
+    for name in tbin.InstanceBinning._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    if not corner_cull:
+        got_t = tbin.bin_gaussians(screen, gx, gy, S, tile_capacity)
+        want_t = scan_bin_gaussians(screen, gx, gy, S, tile_capacity)
+        for name in tbin.TileBinning._fields:
+            assert torch.equal(getattr(got_t, name), getattr(want_t, name)), name
+    if tile_capacity < S:
+        assert int(got.overflow) > 0
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tile_start_rank_matches_scan_rank(seed):
+    """A live row's rank in its tile, s - tile_start[tile], is the scan's
+    rank from the last tile boundary; dead rows (num_tiles) sort last."""
+    gen = torch.Generator().manual_seed(seed)
+    num_tiles = 50
+    st = torch.sort(torch.randint(0, num_tiles + 1, (4000,), generator=gen, dtype=torch.int32)).values
+    queries = torch.arange(num_tiles + 1, dtype=torch.int32)
+    tile_start = torch.searchsorted(st, queries, side="left").to(torch.int32)
+    rank = torch.arange(st.shape[0], dtype=torch.int32) - tile_start[st.long()]
+    live = st < num_tiles
+    assert torch.equal(rank[live], scan_rank(st, num_tiles)[live])
+    assert int(rank[live].max()) > 8

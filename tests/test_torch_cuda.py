@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from binning_scan_oracle import scan_bin_gaussians, scan_bin_gaussians_instances
 from chip_smoke import (
     LONG_OPACITIES,
     LONG_TABLE_OPACITIES,
@@ -26,13 +27,14 @@ from chip_smoke import (
     oracle_phase,
     random_blend_case,
     random_expand_case,
+    random_instances_case,
     random_table_case,
     small_runner_check,
     small_step_check,
     wide_blend_checks,
 )
 from street_gaussians_torch.kernels import _build
-from street_gaussians_torch.ops import fill, rasterize, segsum, tile_raster, tile_raster2
+from street_gaussians_torch.ops import binning, fill, rasterize, segsum, tile_raster, tile_raster2
 from street_gaussians_torch.script import probe_kernel
 
 # kernel B: the two differ only in the order of f32 sums (see
@@ -64,6 +66,55 @@ def test_expand_runs_kernel_matches_plain(cuda_device, pad):
     torch.cuda.synchronize()
     assert fill.expand_runs.launches == before + 1
     assert torch.equal(got, fill.expand_runs_plain(v, o, t, S + pad))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(40, 30), (130, 3)])  # the rect packed in one row; in three (>= 128 tiles)
+@pytest.mark.parametrize("corner_cull", [True, False])
+@pytest.mark.parametrize("pad", [-4104, 0, 333])  # instance overflow, exact fit, room to spare
+def test_expand_instances_kernel_matches_plain(cuda_device, grid, corner_cull, pad):
+    """Exact: ragged runs with empty ones (leading ones too), and the
+    cull's ties in float32 rounded as PyTorch's separate ops round."""
+    vals, offs, total, num_ids = random_instances_case(2, 50_000, cuda_device, *grid, corner_cull,
+                                                       leading_empty=7)
+    S = int(total) + pad
+    before = fill.expand_instances.launches
+    got = fill.expand_instances(vals, offs, total, S, num_ids, *grid)
+    torch.cuda.synchronize()
+    assert fill.expand_instances.launches == before + 1
+    want = fill.expand_instances_plain(vals, offs, total, S, num_ids, *grid)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_capacity", [None, 256])  # the serve options' (no cap); one that binds
+def test_binning_matches_the_scan_on_the_bench_frame(cuda_device, tile_capacity):
+    """Both layouts on the bench frame (1600x1064, 661,248 rows) equal,
+    field for field, the scan formulation the run expansion replaced;
+    one expand_instances launch a binning."""
+    from street_gaussians_torch import serve
+    from street_gaussians_torch.models.renderer import screen_space
+
+    scene, params = serve.bench_scene(seed=0, device=cuda_device)
+    opts, frame = serve.SERVE_OPTS, scene.frames[0]
+    with torch.no_grad():
+        screen, _ = screen_space(params, scene.aux, scene.table, scene.pose_data, frame, serve.SERVE_STEP,
+                                 opts=opts)
+    gx, gy = (frame.cam.W + 15) // 16, (frame.cam.H + 15) // 16
+    S, tc = opts.instance_capacity, tile_capacity or opts.tile_capacity
+    before = fill.expand_instances.launches
+    got = binning.bin_gaussians_instances(screen, gx, gy, S, tc, corner_cull=opts.corner_cull)
+    assert fill.expand_instances.launches == before + 1
+    want = scan_bin_gaussians_instances(screen, gx, gy, S, tc, corner_cull=opts.corner_cull)
+    for name in binning.InstanceBinning._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert int(got.num_instances) > 1_000_000 and (int(got.overflow_tile) > 0) == (tile_capacity is not None)
+    tc = tile_capacity or 2048
+    got = binning.bin_gaussians(screen, gx, gy, S, tc)
+    assert fill.expand_instances.launches == before + 2
+    want = scan_bin_gaussians(screen, gx, gy, S, tc)
+    for name in binning.TileBinning._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
 
 
 @pytest.mark.cuda
@@ -564,7 +615,7 @@ def test_every_host_sync_lies_in_a_sync_span(cuda_device, tmp_path):
 def test_every_source_is_built_by_name():
     sources = {f[:-3] for f in os.listdir(_build.CSRC_DIR) if f.endswith(".cu")}
     assert sources == set(_build.ALL_SOURCES)
-    for name in ("tile_blend_table", "tile_blend_table_bwd", "probe_blend"):
+    for name in ("fill", "tile_blend_table", "tile_blend_table_bwd", "probe_blend"):
         assert "-fmad=false" in _build.nvcc_flags(name)
 
 
