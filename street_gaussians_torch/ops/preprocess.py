@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from street_gaussians_torch.utils import sh as sh_utils
+from street_gaussians_torch.utils.trace import span
 
 TILE = 16  # pixels per tile side
 NEAR_Z = 0.2
@@ -218,12 +219,13 @@ def preprocess_gaussians(
         valid = valid & alive
 
     if colors_precomp is None:
-        dirs = means3d - cam_center[None, :]
-        dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-12)
-        basis = sh_utils.sh_basis(sh_degree, dirs)  # [N, K']
-        k = basis.shape[-1]
-        rgb = torch.einsum("nk,nkc->nc", basis, shs[:, :k, :]) + 0.5
-        rgb = torch.clamp(rgb, min=0.0)
+        with span("sh"):
+            dirs = means3d - cam_center[None, :]
+            dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-12)
+            basis = sh_utils.sh_basis(sh_degree, dirs)  # [N, K']
+            k = basis.shape[-1]
+            rgb = torch.einsum("nk,nkc->nc", basis, shs[:, :k, :]) + 0.5
+            rgb = torch.clamp(rgb, min=0.0)
     else:
         rgb = colors_precomp
 

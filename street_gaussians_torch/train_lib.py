@@ -345,13 +345,14 @@ def apply_gradients(cfg: Config, table: G.SceneTable, state: TrainState, cam, sc
     in_range = (cam.frame >= table.start_frame[mid]) & (cam.frame <= table.end_frame[mid])
     ovf = [out["overflow"], out["overflow_instance"], out["overflow_tile"]]
     if data_group is not None:
-        add, denom_add, *ovf = data_group.all_reduce([add, denom_add, *ovf], "sum")
-        max_r, in_range = data_group.all_reduce([max_r, in_range.to(torch.float32)], "max")
-        in_range = in_range > 0
-        names = list(g_params)
-        g_params = dict(zip(names, data_group.all_reduce([g_params[k] for k in names], "mean")))
-        names = list(scalars)
-        scalars = dict(zip(names, data_group.all_reduce([scalars[k] for k in names], "mean")))
+        with span("grad_allreduce"):
+            add, denom_add, *ovf = data_group.all_reduce([add, denom_add, *ovf], "sum")
+            max_r, in_range = data_group.all_reduce([max_r, in_range.to(torch.float32)], "max")
+            in_range = in_range > 0
+            names = list(g_params)
+            g_params = dict(zip(names, data_group.all_reduce([g_params[k] for k in names], "mean")))
+            names = list(scalars)
+            scalars = dict(zip(names, data_group.all_reduce([scalars[k] for k in names], "mean")))
     aux = add_stats(state.aux, add, denom_add, max_r)
     # per-row activity: rows of models not visible at this frame get no
     # gradient and no Adam step (torch's set_to_none)

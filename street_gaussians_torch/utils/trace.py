@@ -35,6 +35,7 @@ SYNC_PREFIX = "sync/"
 SPANS = {
     # a render (models/renderer.py, ops/rasterize.py)
     "screen_space": "compose_frame and preprocess_gaussians: the per-Gaussian half of a render",
+    "sh": "preprocess_gaussians' SH colour: the basis along the view directions and its product with the coefficients",
     "binning": "the (Gaussian, tile) instances, their sort and the tiles' runs (ops/binning.py, kernel 2.3)",
     "payload": "the payload rows gathered into instance blocks or the dense table",
     "tile_blend": "the blend forward (kernel 2.1, or 2.5 on the table layout)",
@@ -45,6 +46,8 @@ SPANS = {
     "backward": "torch.autograd.grad over the step's loss (the kernels autograd launches from its own thread)",
     "optimizer": "the PSNR, the densify statistics, the learning rates and the row-masked Adam update",
     "densify": "train_lib.densify_cadence: a densify-and-prune round or an opacity reset",
+    "grad_allreduce": ("train_lib.apply_gradients over a camera group: the statistics, gradients and scalars "
+                       "reduced over its ranks (parallel/comm.py)"),
     # inside the backward, on autograd's thread
     "tile_blend_bwd": "the blend's backward (kernel 2.2, or 2.6 on the table layout)",
     "payload_bwd": "the payload gather's gradient: the stable sort, the column gather and the row-sum (2.4)",

@@ -612,6 +612,57 @@ def test_every_host_sync_lies_in_a_sync_span(cuda_device, tmp_path):
         s["name"] for s in trace.host_spans(ev, "")}
 
 
+
+@pytest.mark.cuda
+def test_static_sh3_step_syncs_lie_in_sync_spans(cuda_device):
+    """A traced train step of 3D Gaussian splatting's recipe at SH degree
+    3 on a small static scene (benchmark/configs/mipnerf360_garden.json's
+    garden at a toy size, built as the benchmark's cell builds it: one
+    cloud, no actors, no sky): every host sync lies inside a `sync/`
+    span of its own thread, the `sh` span opens inside `screen_space`,
+    and utils.trace lists `sh` and `grad_allreduce`."""
+    import copy
+    import json
+
+    from benchmark.harness import orbit
+    from benchmark.harness.orbit_scene import make_scene, make_truth, toy_config
+    from street_gaussians_torch.train_lib import Draws, make_train_step
+    from street_gaussians_torch.utils import trace
+
+    assert {"sh", "grad_allreduce"} <= set(trace.SPANS)
+    with open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "benchmark", "configs",
+                           "mipnerf360_garden.json")) as f:
+        cfg = json.load(f)
+    recipe = copy.deepcopy(cfg["recipe"])
+    recipe["render"].update(instance_capacity=1 << 20, max_instance_capacity=1 << 20)
+    scene = make_scene(toy_config(cfg["scene"], width=320, rows=40_000, views=9), 2**31 + 29, cuda_device)
+    i = scene.train_views[0]
+    prog = orbit.build(scene, recipe, {i: make_truth(scene, scene.views[i], cuda_device)}, cuda_device)
+    step_fn = make_train_step(prog.cfg, prog.table, None, prog.opts_train)
+    draws = Draws(torch.zeros(scene.capacity, dtype=torch.bool, device=cuda_device), None)
+    state, sc = step_fn(prog.state, prog.frames[i], prog.truths[i], draws=draws)  # every shape warm
+    assert int(sc["overflow"]) == 0
+    torch.cuda.synchronize()
+    with trace.profiler(cuda_device) as prof:
+        with torch.profiler.record_function("checked"):
+            state, _ = step_fn(state, prog.frames[i], prog.truths[i], draws=draws)
+        torch.cuda.synchronize()
+    path = os.path.join(os.environ.get("TMPDIR", "/tmp"), f"static_sh3_trace_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    ev = trace.load_events(path)
+    os.unlink(path)
+    (win,) = [e for e in ev if e.get("cat") == "user_annotation" and e.get("name") == "checked"]
+    syncs = [y for y in trace.host_syncs(ev) if win["ts"] <= y["ts"] <= win["ts"] + win["dur"]]
+    spans = trace.host_spans(ev)
+    outside = [y for y in syncs if not any(s["tid"] == y["tid"] and s["ts"] <= y["ts"] <= s["ts"] + s["dur"]
+                                           for s in spans)]
+    assert syncs and not outside, (len(syncs), outside[:5])
+    ranges = {n: [e for e in trace.host_spans(ev, n) if e["name"] == n] for n in ("sh", "screen_space")}
+    assert len(ranges["sh"]) == 1 and any(s["ts"] <= ranges["sh"][0]["ts"] and
+                                          ranges["sh"][0]["ts"] + ranges["sh"][0]["dur"] <= s["ts"] + s["dur"]
+                                          for s in ranges["screen_space"])
+
+
 def test_every_source_is_built_by_name():
     sources = {f[:-3] for f in os.listdir(_build.CSRC_DIR) if f.endswith(".cu")}
     assert sources == set(_build.ALL_SOURCES)
