@@ -665,7 +665,7 @@ def main() -> int:
         built = _build.build(_build.ALL_SOURCES)
         probe_build.result()
         search_build.result()
-    log(f"[build] {time.perf_counter() - t0:.2f} s wall for the {len(_build.ALL_SOURCES)} sources (8 kernels) "
+    log(f"[build] {time.perf_counter() - t0:.2f} s wall for the {len(_build.ALL_SOURCES)} sources (9 kernels) "
         f"and the probe builds of {list(block_times.REGIONS)} and {list(search_times.SOURCES)}")
     for name, info in built.items():
         ptxas = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "Compiling" in ln]
@@ -696,6 +696,10 @@ def main() -> int:
         err_b = max(err_b, compare_blend(
             tile_raster2.tile_blend_instances(*case), tile_raster2.tile_blend_plain(*case), case[3],
             f"tile_blend long runs (16 tiles, up to {max(LONG_RUNS)} lanes, opacity {opacity})"))
+
+    # ---- 3a, continued: row-masked Adam at the benchmark's leaf shapes ----
+    adam_entry = adam_phase(dev)
+    torch.cuda.empty_cache()
 
     # ---- 3b. the bench frame's own inputs ----
     t0 = time.perf_counter()
@@ -886,6 +890,9 @@ def main() -> int:
          b_ms, b_plain, None, bound(b_bytes, b_ops),
          {**train, "serve_launches": serve_launches["tile_blend_instances"]}),
         *((*k[:-1], {**train, **k[-1]}) for k in t["kernels"]),
+        ("adam", "street_gaussians_torch/csrc/adam.cu",
+         "none: the JAX package's Adam (street_gaussians_tpu/optim/adam.py) is plain jnp, fused by XLA",
+         t["launches"]["adam_update"], 0.0, *adam_entry[:4], {**train, **adam_entry[4]}),
         *table_kernels,
     ):
         if "train" in extra["path"]:
@@ -948,6 +955,92 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+ADAM_ROW_WIDTHS = {  # the Gaussian leaves' shapes past the row axis
+    "mipnerf360_garden": {"xyz": (3,), "feat_dc": (1, 3), "feat_rest": (15, 3), "log_scale": (3,), "rot": (4,),
+                          "opacity_logit": (1,), "semantic": (1,)},
+    "waymo_train_002": {"xyz": (3,), "feat_dc": (5, 3), "feat_rest": (3, 3), "log_scale": (3,), "rot": (4,),
+                        "opacity_logit": (1,), "semantic": (1,)},
+}
+# rows (capacity), then the leaves with a scalar count: cell 1's sky
+# cubemap (3 x 6 faces of 1024^2) and its 6 actors' poses over 101 frames
+ADAM_CELLS = {
+    "mipnerf360_garden": (6_291_456, {}),
+    "waymo_train_002": (1_359_872, {"sky.cubemap": (3, 6 * 1024 * 1024), "actor_pose.opt_trans": (101, 6, 3),
+                                    "actor_pose.opt_rots": (101, 6, 1)}),
+}
+ADAM_OPS = 21  # f32 operations a float: 6 for mu, 7 for nu, 6 for the update, 2 to apply it
+
+
+def adam_case(cell: str, dev, seed: int = 0):
+    """(params, grads, AdamState, lr, mask) at a benchmark cell's leaf
+    shapes (ADAM_CELLS): ~92% of rows alive, per-row counts of 0-15,000
+    (a tenth 0), per-row lr on the Gaussian leaves, floats on the rest."""
+    from street_gaussians_torch.optim.adam import AdamState
+
+    rows, others = ADAM_CELLS[cell]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda *shape: torch.rand(shape, generator=gen, device=dev)  # noqa: E731
+    alive = rand(rows) < 0.92
+    cnt = torch.floor(rand(rows) * 15_001) * (rand(rows) > 0.1)
+    params, grads, mu, nu, count, lr, mask = {}, {}, {}, {}, {}, {}, {}
+    leaves = [(f"gaussians.{k}", (rows, *w)) for k, w in ADAM_ROW_WIDTHS[cell].items()] + list(others.items())
+    for k, shape in leaves:
+        params[k] = torch.randn(shape, generator=gen, device=dev)
+        grads[k] = torch.randn(shape, generator=gen, device=dev) * 1e-4
+        mu[k] = torch.randn(shape, generator=gen, device=dev) * 1e-5
+        nu[k] = rand(*shape) * 1e-8
+        row = k.startswith("gaussians.")
+        count[k] = cnt if row else torch.tensor(10_000.0, device=dev)
+        lr[k] = rand(rows) * 1e-3 if row else 1e-4
+        mask[k] = alive if row else None
+    return params, grads, AdamState(mu=mu, nu=nu, count=count), lr, mask
+
+
+def adam_phase(dev) -> tuple:
+    """Step 3a, continued: the Adam kernel at the garden's and cell 1's leaves,
+    bit-equal to the plain version (every output), one launch a call;
+    its ms, the plain version's and the bound by bytes. Returns (ms,
+    plain ms, None, (bound ms, by), extra) of the garden for the
+    kernels line, extra holding cell 1's numbers."""
+    from street_gaussians_torch.optim import adam
+
+    out = {}
+    for cell in ADAM_CELLS:
+        args = adam_case(cell, dev)
+        params, _, state, lr, _ = args
+        launches = adam.adam_update.launches
+        got_p, got = adam.adam_update(*args)
+        torch.cuda.synchronize()
+        if adam.adam_update.launches != launches + 1:
+            raise AssertionError(f"adam {cell}: {adam.adam_update.launches - launches} launches for one call")
+        want_p, want = adam.adam_update_plain(*args)
+        for k in params:
+            for what, a, b in (("param", got_p[k], want_p[k]), ("mu", got.mu[k], want.mu[k]),
+                               ("nu", got.nu[k], want.nu[k]), ("count", got.count[k], want.count[k])):
+                if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                    ulp = int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
+                    raise AssertionError(f"adam {cell} {k} {what}: not bit-equal to the plain version ({ulp} ulp)")
+        del got_p, got, want_p, want
+        floats = sum(p.numel() for p in params.values())
+        # p, g, mu, nu read and p, mu, nu written once a float; a row's
+        # mask (1 byte), count (read and written) and lr once a leaf
+        nbytes = 28 * floats + sum(
+            state.count[k].numel() * (8 + (1 if state.count[k].dim() else 0))
+            + (lr[k].numel() * 4 if torch.is_tensor(lr[k]) else 0) for k in params)
+        ms = cuda_ms(lambda: adam.adam_update(*args), 20)
+        plain = cuda_ms(lambda: adam.adam_update_plain(*args), 5)
+        bms, by = bound(nbytes, ADAM_OPS * floats)
+        out[cell] = {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "floats": floats,
+                     "bytes": nbytes, "leaves": len(params)}
+        log(f"[kernel] adam {cell}: {ms:.4f} ms (plain {plain:.4f} ms), bound {bms:.4f} ms by {by} "
+            f"({floats} floats in {len(params)} leaves, {nbytes} bytes); bit-equal to the plain version, 1 launch")
+        del args, params, state, lr
+        torch.cuda.empty_cache()
+    g = out["mipnerf360_garden"]
+    return g["ms"], g["plain_ms"], None, (g["bound_ms"], g["bound_by"]), {
+        "mipnerf360_garden": g, "waymo_train_002": out["waymo_train_002"]}
 
 
 def table_phase(dev, screen, H, W, b_args, b_ref, b_plain, b_bound) -> list:
@@ -2405,6 +2498,7 @@ def train_phase(dev) -> dict:
     from street_gaussians_torch import train
     from street_gaussians_torch.models import sky_cubemap
     from street_gaussians_torch.ops import fill, rasterize, segsum, tile_raster2
+    from street_gaussians_torch.optim import adam
     from street_gaussians_torch.script import block_times, search_times
     from street_gaussians_torch.train_lib import Draws, flatten_params
 
@@ -2481,7 +2575,7 @@ def train_phase(dev) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for k in (fill.expand_instances, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd,
-              segsum.segment_rowsum):
+              segsum.segment_rowsum, adam.adam_update):
         k.launches = 0
     step_ms, records = [], []
     for i in range(TRAIN_STEPS):
@@ -2494,7 +2588,7 @@ def train_phase(dev) -> dict:
         records.append(sc)
     launches = {k.__name__: k.launches for k in (
         fill.expand_instances, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd,
-        segsum.segment_rowsum)}
+        segsum.segment_rowsum, adam.adam_update)}
     peak = torch.cuda.max_memory_allocated(dev)
     for i, sc in enumerate(records):
         loss = float(sc["loss"])
@@ -2506,7 +2600,8 @@ def train_phase(dev) -> dict:
         if not torch.isfinite(v).all():
             raise AssertionError(f"non-finite parameter {k} after training")
     if (launches["tile_blend_bwd"] != TRAIN_STEPS or launches["tile_blend_instances"] != TRAIN_STEPS
-            or launches["segment_rowsum"] < 2 * TRAIN_STEPS or launches["expand_instances"] < TRAIN_STEPS):
+            or launches["segment_rowsum"] < 2 * TRAIN_STEPS or launches["expand_instances"] < TRAIN_STEPS
+            or launches["adam_update"] != TRAIN_STEPS):
         raise AssertionError(f"train path launches {launches} for {TRAIN_STEPS} steps")
     log(f"[train] {TRAIN_STEPS} steps: mean {sum(step_ms) / TRAIN_STEPS:.3f} ms/step (min "
         f"{min(step_ms):.3f}, max {max(step_ms):.3f}); peak memory {peak / 2**30:.3f} GiB; "

@@ -31,16 +31,18 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # per-source flags: the blend rounds every product and sum on its own,
 # as its plain PyTorch version does, so the two differ only in the
-# order of their sums; so does binning's corner cull (fill), so the two
-# decide every edge alike
+# order of their sums; so do binning's corner cull (fill), so the two
+# decide every edge alike, and Adam, so that it is bit-equal to its
+# plain version
 EXTRA_FLAGS = {
     name: ["-fmad=false"]
-    for name in ("fill", "tile_blend", "tile_blend_bwd", "tile_blend_table", "tile_blend_table_bwd", "probe_blend")
+    for name in ("fill", "tile_blend", "tile_blend_bwd", "tile_blend_table", "tile_blend_table_bwd", "probe_blend",
+                 "adam")
 }
 # every source under csrc/, for a caller that builds them all at once
 ALL_SOURCES = (
     "fill", "tile_blend", "tile_blend_bwd", "segsum",
-    "tile_blend_table", "tile_blend_table_bwd", "probe_blend",
+    "tile_blend_table", "tile_blend_table_bwd", "probe_blend", "adam",
 )
 
 _LIBS: Dict[tuple, ctypes.CDLL] = {}

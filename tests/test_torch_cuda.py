@@ -663,10 +663,182 @@ def test_static_sh3_step_syncs_lie_in_sync_spans(cuda_device):
                                           for s in ranges["screen_space"])
 
 
+# ---------------------------------------------------------------- row-masked Adam
+
+
+ADAM_ROWS = 5003  # a row count that is neither a multiple of 4 nor of the kernel's 4,096-float chunk
+ADAM_SHAPES = {1: (1,), 3: (3,), 4: (4,), 9: (3, 3), 15: (5, 3), 45: (15, 3)}  # row widths as the leaves hold them
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def _adam_case(case: str, dev):
+    """(params, grads, AdamState, lr, mask) of one card test case, drawn
+    on the CPU from a fixed seed."""
+    from street_gaussians_torch.optim.adam import AdamState
+
+    gen = torch.Generator().manual_seed(sum(map(ord, case)))
+    rand = lambda *shape: torch.rand(shape, generator=gen)  # noqa: E731
+    randn = lambda *shape: torch.randn(shape, generator=gen)  # noqa: E731
+    params, grads, mu, nu, count, lr, mask = {}, {}, {}, {}, {}, {}, {}
+
+    def leaf(name, shape, cnt, lr_k, m=None, offset=0):
+        n = int(np.prod(shape))
+        for tree, x in ((params, randn(n)), (grads, randn(n) * 1e-3 * (rand(n) > 0.1)),
+                        (mu, randn(n) * 1e-4), (nu, rand(n) * 1e-6)):
+            # offset 1: a contiguous view 4 bytes into its storage, not 16-byte aligned
+            tree[name] = torch.cat([torch.zeros(offset), x]).to(dev)[offset:].view(shape)
+        count[name], lr[name], mask[name] = cnt.to(dev), lr_k, m
+
+    rows = 2**24 if case == "every_count" else ADAM_ROWS
+    # counts of 0-40, a tenth of the rows at 0; the mask off on a fifth
+    # of them, so some rows never stepped stay at 0
+    cnt = torch.floor(rand(rows) * 41) * (rand(rows) > 0.1)
+    on = rand(rows) > 0.2
+    lrs = [lambda: (rand(rows) * 1e-3).to(dev), lambda: 1.6e-4, lambda: 2.5e-3]
+    scalar_leaves = (("actor_pose.opt_trans", (85, 6, 3), 7.0, 4.1e-4),
+                     ("actor_pose.opt_rots", (85, 6, 1), 7.0, 0.0),
+                     ("sky.cubemap", (6, 64, 64, 3), 0.0, 1e-2),
+                     ("color_correction.affine", (303, 3, 4), 12345.0, 5e-4))
+    if case in ("rows_bool", "unaligned"):
+        m = on.to(dev) if case == "rows_bool" else None
+        for i, (w, shape) in enumerate(ADAM_SHAPES.items()):
+            leaf(f"gaussians.w{w}", (rows, *shape), cnt, lrs[i % 3](), m, offset=int(case == "unaligned"))
+    elif case == "scalar_counts":
+        # a sky-cubemap-shaped 4-D leaf and small pose leaves: scalar counts, no mask
+        for name, shape, c, lr_k in scalar_leaves:
+            leaf(name, shape, torch.tensor(c), lr_k)
+    elif case == "every_count":
+        # one float a row; every count from 0 to 2^24 - 1, each row on:
+        # the bias corrections' powf at every integer step
+        leaf("gaussians.opacity_logit", (rows, 1), torch.arange(rows, dtype=torch.float32), lrs[0](),
+             torch.ones(rows, dtype=torch.bool, device=dev))
+    elif case == "strided_grad":
+        # a table as the semantics step's: the Gaussian leaves, the
+        # semantic leaf's gradient as autograd gives it ([rows, 20]
+        # transposed, so the wrapper copies it), then the scalar-count
+        # leaves, a sky-sized cubemap (3 x 6 faces of 1024^2) among them,
+        # whose outputs are allocated after the copy
+        for i, (w, shape) in enumerate(ADAM_SHAPES.items()):
+            leaf(f"gaussians.w{w}", (rows, *shape), cnt, lrs[i % 3](), on.to(dev))
+        leaf("gaussians.semantic", (rows, 20), cnt, lrs[0](), on.to(dev))
+        grads["gaussians.semantic"] = grads["gaussians.semantic"].t().contiguous().t()
+        for name, shape, c, lr_k in scalar_leaves:
+            leaf(name, (3, 6 * 1024 * 1024) if name == "sky.cubemap" else shape, torch.tensor(c), lr_k)
+    elif case == "most_leaves":
+        for i in range(32):
+            leaf(f"leaf{i}", (ADAM_ROWS + i, 1 + i % 5), cnt[:1].clone().reshape(()) + i, 1e-3 * (i + 1))
+    return params, grads, AdamState(mu=mu, nu=nu, count=count), lr, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rows_bool", "unaligned", "scalar_counts", "every_count", "strided_grad",
+                                  "most_leaves"])
+def test_adam_kernel_is_bit_equal_to_plain(cuda_device, case):
+    """csrc/adam.cu against optim.adam's plain version, bit for bit:
+    row widths 1, 3, 4, 9, 15, 45 over 5,003 rows (numel not a multiple
+    of 4, rows not of the chunk), masks with rows off, rows whose count
+    is 0, per-row and float lr; leaves 4 bytes off 16-byte alignment (the
+    scalar path); scalar counts on a 4-D sky-shaped leaf; every count to
+    2^24; a transposed gradient (the semantic leaf's layout) amid the
+    leaves of a step, called 5 times; the 32 leaves a launch takes. The
+    inputs are left as they were, and a call launches once."""
+    from street_gaussians_torch.optim import adam
+
+    params, grads, state, lr, mask = _adam_case(case, cuda_device)
+    before = [t.clone() for tree in (params, grads, state.mu, state.nu, state.count) for t in tree.values()]
+    want_p, want = adam.adam_update_plain(params, grads, state, lr, mask)
+    for call in range(5 if case == "strided_grad" else 1):
+        launches = adam.adam_update.launches
+        got_p, got = adam.adam_update(params, grads, state, lr, mask)
+        torch.cuda.synchronize()
+        assert adam.adam_update.launches - launches == 1
+        after = [t for tree in (params, grads, state.mu, state.nu, state.count) for t in tree.values()]
+        assert all(_same_bits(a, b) for a, b in zip(before, after))
+        for k in params:
+            for what, a, b in (("param", got_p[k], want_p[k]), ("mu", got.mu[k], want.mu[k]),
+                               ("nu", got.nu[k], want.nu[k]), ("count", got.count[k], want.count[k])):
+                if not _same_bits(a, b):
+                    ulp = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max()
+                    raise AssertionError(f"{case} call {call} {k} {what}: not bit-equal, "
+                                         f"largest difference {int(ulp)} ulp")
+        del got_p, got
+    assert any(bool((p != want_p[k]).any()) for k, p in params.items())
+
+
+@pytest.mark.cuda
+def test_adam_kernel_rejects_what_it_does_not_take(cuda_device):
+    """A CUDA leaf the kernel does not take raises (no fallback): float64,
+    non-contiguous, a mask beside a scalar count, leaves on two devices,
+    more leaves than a launch takes."""
+    from street_gaussians_torch.optim import adam
+
+    params, grads, state, lr, mask = _adam_case("rows_bool", cuda_device)
+    k = "gaussians.w3"
+    for bad in ({**params, k: params[k].double()},
+                {**params, k: params[k].t().contiguous().t()},
+                {**params, k: params[k].cpu()}):
+        with pytest.raises(ValueError):
+            adam.adam_update(bad, grads, state, lr, mask)
+    scalar = state._replace(count={**state.count, k: state.count[k][0]})
+    with pytest.raises(ValueError, match="scalar count"):
+        adam.adam_update(params, grads, scalar, lr, mask)
+    params, grads, state, lr, mask = _adam_case("most_leaves", cuda_device)
+    params["one_more"], grads["one_more"] = params["leaf0"], grads["leaf0"]
+    for tree in (state.mu, state.nu, state.count, lr, mask):
+        tree["one_more"] = tree["leaf0"]
+    with pytest.raises(ValueError, match="at most 32"):
+        adam.adam_update(params, grads, state, lr, mask)
+
+
+@pytest.mark.cuda
+def test_train_step_takes_one_adam_launch_and_no_more_syncs(cuda_device, monkeypatch, tmp_path):
+    """A traced train step of cell 1's recipe (sky, LiDAR depth, actors)
+    on a small synthetic scene launches the Adam kernel once, and makes
+    as many host syncs as the same step with the plain Adam."""
+    import dataclasses
+
+    from street_gaussians_torch import train as ttrain_cli
+    from street_gaussians_torch import train_lib
+    from street_gaussians_torch.optim import adam
+    from street_gaussians_torch.utils import trace
+
+    cell = ttrain_cli.bench_train_cell(cuda_device, num_bkgd=20_000, num_actors=2, H=266, W=400, sky_resolution=64)
+    cfg = _cell1_cfg()
+    step_fn = train_lib.make_train_step(cfg, cell.scene.table, cell.scene.pose_data, cell.opts)
+    state = dataclasses.replace(cell.state, step=10_000)
+
+    def traced_step(name):
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        step_fn(state, cell.frame, cell.gt, gen)  # every shape warm
+        torch.cuda.synchronize()
+        launches = adam.adam_update.launches
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        with trace.profiler(cuda_device) as prof:
+            with torch.profiler.record_function("checked"):
+                step_fn(state, cell.frame, cell.gt, gen)
+            torch.cuda.synchronize()
+        path = str(tmp_path / f"{name}.json")
+        prof.export_chrome_trace(path)
+        ev = trace.load_events(path)
+        (win,) = [e for e in ev if e.get("cat") == "user_annotation" and e.get("name") == "checked"]
+        syncs = [y for y in trace.host_syncs(ev) if win["ts"] <= y["ts"] <= win["ts"] + win["dur"]]
+        return len(syncs), adam.adam_update.launches - launches
+
+    syncs, launches = traced_step("kernel")
+    assert launches == 1
+    monkeypatch.setattr(train_lib, "adam_update", adam.adam_update_plain)
+    plain_syncs, plain_launches = traced_step("plain")
+    assert plain_launches == 0 and syncs == plain_syncs > 0, (syncs, plain_syncs)
+
+
 def test_every_source_is_built_by_name():
     sources = {f[:-3] for f in os.listdir(_build.CSRC_DIR) if f.endswith(".cu")}
     assert sources == set(_build.ALL_SOURCES)
-    for name in ("fill", "tile_blend_table", "tile_blend_table_bwd", "probe_blend"):
+    for name in ("fill", "tile_blend_table", "tile_blend_table_bwd", "probe_blend", "adam"):
         assert "-fmad=false" in _build.nvcc_flags(name)
 
 
