@@ -64,6 +64,7 @@ function on the whole state (the same generator on every rank), then
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -71,21 +72,12 @@ import torch
 
 from street_gaussians_torch.models import gaussians as G_
 from street_gaussians_torch.models.actor_pose import ActorPoseData
-from street_gaussians_torch.models.renderer import RenderOptions, render_frame, render_object_mask, screen_space
+from street_gaussians_torch.models.renderer import RenderOptions, screen_space
 from street_gaussians_torch.ops.preprocess import GaussianScreenData
 from street_gaussians_torch.optim.adam import AdamState
 from street_gaussians_torch.parallel.comm import Group
-from street_gaussians_torch.parallel.tiles import EVAL_STEP, IMAGE_KEYS, Bands, band_capacity, render_bands
-from street_gaussians_torch.train_lib import (
-    GAUSS,
-    TrainState,
-    compute_losses,
-    count_instances,
-    flatten_params,
-    step_around,
-    take_draws,
-    unflatten_params,
-)
+from street_gaussians_torch.parallel.tiles import EVAL_STEP, Bands, band_render
+from street_gaussians_torch.train_lib import GAUSS, TrainState, layout_train_step
 from street_gaussians_torch.utils.trace import span
 
 EXTRAS = ("normals", "semantic")
@@ -227,23 +219,6 @@ def screen_rows(params, aux, table: G_.SceneTable, pose_data: Optional[ActorPose
     return GaussianScreenData(*joined[:nf]), {k: next(extra) if h else None for k, h in zip(EXTRAS, has)}
 
 
-def _band_opts(opts: RenderOptions, T: int) -> RenderOptions:
-    if T == 1:
-        return opts
-    return dataclasses.replace(opts, instance_capacity=band_capacity(opts.instance_capacity, T))
-
-
-def _render_joined(params, aux, table, pose_data, frame, step, opts, sc, T: int, keys=IMAGE_KEYS, jitter=None,
-                   **kw):
-    """render_frame on the joined screen `sc`: the whole frame, or T
-    tile-row bands in turn joined (tiles.render_bands; jitter: the whole
-    frame's sky jitter)."""
-    if T == 1:
-        return render_frame(params, aux, table, pose_data, frame, step, opts=opts, sky_jitter=jitter,
-                            screen_composed=sc, **kw)
-    return render_bands(params, aux, table, pose_data, frame, step, opts, sc, Bands(T), jitter, keys, **kw)
-
-
 def make_gauss_sharded_render(
     table: G_.SceneTable,
     pose_data: Optional[ActorPoseData],
@@ -263,13 +238,10 @@ def make_gauss_sharded_render(
     params (over a group, see make_gauss_sharded_train_step for the
     calibration)."""
     shards = Shards(table.capacity, G, group)
-    local_opts = _band_opts(opts, tile_shards)
+    inner = band_render(table, pose_data, opts, Bands(tile_shards), functools.partial(screen_rows, shards=shards))
 
     def render(params, aux, frame, sky_table=None):
-        sc = screen_rows(params, aux, table, pose_data, frame, EVAL_STEP, local_opts, shards,
-                         include_mask=include_mask)
-        return _render_joined(params, aux, table, pose_data, frame, EVAL_STEP, local_opts, sc, tile_shards,
-                              sky_table=sky_table)
+        return inner(params, aux, frame, EVAL_STEP, include_mask=include_mask, sky_table=sky_table)
 
     render.shards = shards
     return render
@@ -293,9 +265,11 @@ def make_gauss_sharded_train_step(
     blocks in turn in this process. data_group: gauss x camera, one
     camera a gauss group (apply_gradients' camera reductions over it).
     tile_shards T > 1: every render in T tile-row bands in turn (gauss x
-    tile; not with a data group, as in the JAX package)."""
+    tile; not with a data group, as in the JAX package).
+    loss_and_grads returns this process's rows of the radii and of the
+    mean2d offset's and AbsGS dummy's gradients, calibrated (the
+    module's table)."""
     o = cfg.optim
-    C = table.capacity
     if o.get("lambda_scale_flatten", 0.0) > 0 or o.get("lambda_box_reg", 0.0) > 0:
         # these regularizers reduce over all rows; under sharding the
         # local sums would differ per rank (JAX's gauss.py:350-358)
@@ -303,60 +277,20 @@ def make_gauss_sharded_train_step(
             "lambda_scale_flatten / lambda_box_reg are not supported under gauss-sharded training yet")
     if tile_shards > 1 and data_group is not None:
         raise NotImplementedError("3D data x gauss x tile training is not wired (pick two axes)")
-    shards = Shards(C, G, group)
-    T = tile_shards
-    local_opts = _band_opts(opts, T)
-    mid = model_ids(table)
-    obj_mask = None
-    if o.lambda_reg > 0 and table.num_models > 1:
-        obj_mask = torch.as_tensor(render_object_mask(table), device=table.start_frame.device)
+    shards = Shards(table.capacity, G, group)
+    # the object render goes through the same gather (gauss.py:402-412)
+    render = band_render(table, pose_data, opts, Bands(tile_shards), functools.partial(screen_rows, shards=shards))
 
-    def loss_and_grads(state: TrainState, frame, gt, generator=None, draws=None):
-        """train_lib's loss_and_grads on this process's rows: (scalars,
-        the output with this process's rows of the radii, {name:
-        gradient}, the local mean2d offset's and the AbsGS dummy's local
-        gradients), calibrated (the module's table)."""
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        cam = frame.cam
-        dev = state.aux.alive.device
-        leaves = {k: p.detach().requires_grad_(True) for k, p in flatten_params(state.params).items()}
-        params = unflatten_params(leaves, state.params)
-        m2d_off = torch.zeros((shards.local_rows, 2), device=dev, requires_grad=True)
-        abs_dummy = torch.zeros((C, 2), device=dev, requires_grad=True)
-        if draws is None:
-            draws = take_draws(table, state, cam, generator, opts, model_id=mid)
-
-        def render(jitter=None, mean2d_offset=None, include_mask=None, keys=IMAGE_KEYS, **kw):
-            sc = screen_rows(params, state.aux, table, pose_data, frame, state.step, local_opts, shards,
-                             flip=draws.flip, mean2d_offset=mean2d_offset, include_mask=include_mask)
-            return _render_joined(params, state.aux, table, pose_data, frame, state.step, local_opts, sc, T,
-                                  keys=keys, jitter=jitter, **kw)
-
-        out = render(draws.sky_jitter, m2d_off, keys=("rgb", "acc", "depth", "T"), absgrad_dummy=abs_dummy)
-        out_obj = None
-        if obj_mask is not None and state.step >= o.densify_until_iter:
-            # the actors alone, through the same gather (gauss.py:402-412)
-            with span("object_render"):
-                out_obj = render(include_mask=obj_mask, keys=("acc",), compose_sky=False)
-        with span("losses"):
-            loss, scalars = compute_losses(out, gt, params, cfg, cam.image_id, aux=state.aux, table=table,
-                                           out_obj=out_obj)
-        count_instances(scalars, opts.instance_capacity, out, out_obj)
-        wrt = [*leaves.values(), m2d_off, abs_dummy]
-        with span("backward"):
-            grads = torch.autograd.grad(loss / G if group is not None else loss, wrt, allow_unused=True)
-        grads = dict(zip([*leaves, "m2d", "abs"], (torch.zeros_like(x) if g is None else g
-                                                  for g, x in zip(grads, wrt))))
+    def finish(g_params, g_m2d, g_abs, out):
         if group is not None:
             # replicated and partial leaves: one sum over the gauss group
-            rest = [k for k in leaves if not k.startswith(GAUSS)]
-            grads.update(zip(rest, group.all_reduce([grads[k] for k in rest], "sum")))
-            grads["abs"] = shards.local(grads["abs"]) * G
-        out = dict(out, radii=shards.local(out["radii"]))
-        return scalars, out, {k: grads[k] for k in leaves}, grads["m2d"], grads["abs"]
+            rest = [k for k in g_params if not k.startswith(GAUSS)]
+            g_params.update(zip(rest, group.all_reduce([g_params[k] for k in rest], "sum")))
+            g_abs = shards.local(g_abs) * G
+        return g_params, g_m2d, g_abs, dict(out, radii=shards.local(out["radii"]))
 
-    step_fn = step_around(loss_and_grads, cfg, table, opts, data_group, row_group=group, model_id=mid)
+    step_fn = layout_train_step(cfg, table, opts, render, rows=shards.local_rows, divisor=1 if group is None else G,
+                                finish=finish, data_group=data_group, row_group=group, model_id=model_ids(table))
     step_fn.shards = shards
     return step_fn
 

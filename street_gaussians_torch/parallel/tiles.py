@@ -46,17 +46,10 @@ import torch
 
 from street_gaussians_torch.models import gaussians as G
 from street_gaussians_torch.models.actor_pose import ActorPoseData
-from street_gaussians_torch.models.renderer import RenderOptions, render_frame, render_object_mask, screen_space
+from street_gaussians_torch.models.renderer import RenderOptions, render_frame, screen_space
 from street_gaussians_torch.ops.preprocess import TILE
 from street_gaussians_torch.parallel.comm import Group
-from street_gaussians_torch.train_lib import (
-    compute_losses,
-    count_instances,
-    flatten_params,
-    step_around,
-    take_draws,
-    unflatten_params,
-)
+from street_gaussians_torch.train_lib import layout_train_step
 from street_gaussians_torch.utils.trace import span
 
 IMAGE_KEYS = ("rgb", "acc", "depth", "T", "normals", "semantic")
@@ -124,13 +117,6 @@ class Bands:
             local = self.group.all_reduce([local], op)[0]
         return local
 
-    def reduce_all(self, tensors: List[torch.Tensor], op: str) -> List[torch.Tensor]:
-        """op over the band group of tensors this process holds (its own
-        bands' totals already); in one process the tensors as they are."""
-        if self.group is None:
-            return list(tensors)
-        return self.group.all_reduce(tensors, op)
-
 
 def join_bands(bands: Bands, outs: List[Dict[str, torch.Tensor]], H: int,
                keys=IMAGE_KEYS) -> Dict[str, torch.Tensor]:
@@ -145,24 +131,58 @@ def join_bands(bands: Bands, outs: List[Dict[str, torch.Tensor]], H: int,
     return res
 
 
+def band_opts(opts: RenderOptions, D: int) -> RenderOptions:
+    """A layout's render options: at band_capacity when a frame renders
+    in D > 1 bands."""
+    return opts if D == 1 else dataclasses.replace(opts, instance_capacity=band_capacity(opts.instance_capacity, D))
+
+
 def render_bands(params, aux, table: G.SceneTable, pose_data: Optional[ActorPoseData], frame, step: int,
-                 opts: RenderOptions, screen_composed, bands: Bands, jitter: Optional[torch.Tensor] = None,
-                 keys=IMAGE_KEYS, **kw) -> Dict[str, torch.Tensor]:
-    """The bands this process renders (render_frame(row_shard=) on the
-    frame's shared screen_space, `screen_composed`), joined (join_bands).
-    jitter: the whole frame's [H, W, 2] sky jitter, sliced per band; kw:
-    render_frame's other arguments."""
+                 opts: RenderOptions, screen_composed, bands: Bands, keys=IMAGE_KEYS,
+                 sky_jitter: Optional[torch.Tensor] = None, **kw) -> Dict[str, torch.Tensor]:
+    """The frame rendered from its shared screen_space, `screen_composed`:
+    with one band the whole frame (render_frame), else the bands this
+    process renders (render_frame(row_shard=)), joined (join_bands) with
+    the images in keys. sky_jitter: the whole frame's [H, W, 2], sliced
+    per band; kw: render_frame's other arguments."""
+    if bands.D == 1:
+        return render_frame(params, aux, table, pose_data, frame, step, opts=opts, sky_jitter=sky_jitter,
+                            screen_composed=screen_composed, **kw)
     layout = band_layout(frame.cam.H, bands.D)
-    if jitter is not None:
-        jitter = torch.nn.functional.pad(jitter, (0, 0, 0, 0, 0, layout.H_pad - frame.cam.H))
+    if sky_jitter is not None:
+        sky_jitter = torch.nn.functional.pad(sky_jitter, (0, 0, 0, 0, 0, layout.H_pad - frame.cam.H))
     outs = []
     for d in bands.mine:
         start, rows = layout.band(d)
-        jit = None if jitter is None else jitter[start * TILE:(start + rows) * TILE]
+        jit = None if sky_jitter is None else sky_jitter[start * TILE:(start + rows) * TILE]
         with span(f"band_{d}"):
             outs.append(render_frame(params, aux, table, pose_data, frame, step, opts=opts, sky_jitter=jit,
                                      row_shard=(start, rows), screen_composed=screen_composed, **kw))
     return join_bands(bands, outs, frame.cam.H, keys)
+
+
+def _screen_space(params, aux, table, pose_data, frame, step, opts, **kw):
+    with span("screen_space"):
+        return screen_space(params, aux, table, pose_data, frame, step, opts, **kw)
+
+
+def band_render(table: G.SceneTable, pose_data: Optional[ActorPoseData], opts: RenderOptions, bands: Bands,
+                screen=_screen_space) -> Callable:
+    """render(params, aux, frame, step, keys=IMAGE_KEYS, *, flip=None,
+    mean2d_offset=None, include_mask=None, **kw) -> the frame's outputs:
+    its screen built once by screen(params, aux, table, pose_data, frame,
+    step, opts, flip=, mean2d_offset=, include_mask=) (default
+    screen_space), then rendered by render_bands at band_opts (kw:
+    render_frame's other arguments). The render of every layout of
+    bands and row blocks, for eval and for train_lib.layout_train_step."""
+    local_opts = band_opts(opts, bands.D)
+
+    def render(params, aux, frame, step, keys=IMAGE_KEYS, flip=None, mean2d_offset=None, include_mask=None, **kw):
+        sc = screen(params, aux, table, pose_data, frame, step, local_opts, flip=flip, mean2d_offset=mean2d_offset,
+                    include_mask=include_mask)
+        return render_bands(params, aux, table, pose_data, frame, step, local_opts, sc, bands, keys, **kw)
+
+    return render
 
 
 def make_row_sharded_render(
@@ -180,13 +200,10 @@ def make_row_sharded_render(
     docstring); differentiable in params (over a group, see
     make_tile_sharded_train_step for the gradient's calibration)."""
     bands = Bands(D, group)
-    local_opts = dataclasses.replace(opts, instance_capacity=band_capacity(opts.instance_capacity, D))
+    inner = band_render(table, pose_data, opts, bands)
 
     def render(params, aux, frame, sky_table=None):
-        with span("screen_space"):
-            sc = screen_space(params, aux, table, pose_data, frame, EVAL_STEP, local_opts, include_mask=include_mask)
-        return render_bands(params, aux, table, pose_data, frame, EVAL_STEP, local_opts, sc, bands,
-                            sky_table=sky_table)
+        return inner(params, aux, frame, EVAL_STEP, include_mask=include_mask, sky_table=sky_table)
 
     render.bands = bands
     return render
@@ -209,53 +226,15 @@ def make_tile_sharded_train_step(
     bands run in turn in this process. data_group: camera data parallel
     over a parallel.comm.Group, one camera a rank, each camera rendered
     in D bands in its process (the JAX package's ('data', 'tile') mesh);
-    the reductions over cameras are train_lib.apply_gradients'."""
-    o = cfg.optim
-    C = table.capacity
-    bands = Bands(D, group)
-    local_opts = dataclasses.replace(opts, instance_capacity=band_capacity(opts.instance_capacity, D))
-    obj_mask = None
-    if o.lambda_reg > 0 and table.num_models > 1:
-        obj_mask = torch.as_tensor(render_object_mask(table), device=table.start_frame.device)
+    the reductions over cameras are train_lib.apply_gradients'. Each
+    gradient loss_and_grads returns is the whole frame's."""
+    render = band_render(table, pose_data, opts, Bands(D, group))
+    if group is None:
+        return layout_train_step(cfg, table, opts, render, data_group=data_group)
 
-    def loss_and_grads(state, frame, gt, generator=None, draws=None):
-        """train_lib's loss_and_grads over the bands: (scalars, the
-        joined output, {name: gradient}, the mean2d offset's and the
-        AbsGS dummy's gradients), each gradient the whole frame's."""
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        cam = frame.cam
-        dev = state.aux.alive.device
-        leaves = {k: p.detach().requires_grad_(True) for k, p in flatten_params(state.params).items()}
-        params = unflatten_params(leaves, state.params)
-        m2d_off = torch.zeros((C, 2), device=dev, requires_grad=True)
-        abs_dummy = torch.zeros((C, 2), device=dev, requires_grad=True)
-        if draws is None:
-            draws = take_draws(table, state, cam, generator, opts)
+    def finish(g_params, g_m2d, g_abs, out):
+        # band shares -> the whole gradient
+        *g, g_m2d, g_abs = group.all_reduce([*g_params.values(), g_m2d, g_abs], "sum")
+        return dict(zip(g_params, g)), g_m2d, g_abs, out
 
-        def band_renders(jitter=None, mean2d_offset=None, include_mask=None, **kw):
-            with span("screen_space"):
-                sc = screen_space(params, state.aux, table, pose_data, frame, state.step, local_opts,
-                                  flip=draws.flip, mean2d_offset=mean2d_offset, include_mask=include_mask)
-            return render_bands(params, state.aux, table, pose_data, frame, state.step, local_opts, sc, bands,
-                                jitter, **kw)
-
-        out = band_renders(draws.sky_jitter, mean2d_offset=m2d_off, keys=("rgb", "acc", "depth", "T"),
-                           absgrad_dummy=abs_dummy)
-        out_obj = None
-        if obj_mask is not None and state.step >= o.densify_until_iter:
-            with span("object_render"):
-                out_obj = band_renders(include_mask=obj_mask, keys=("acc",), compose_sky=False)
-        with span("losses"):
-            loss, scalars = compute_losses(out, gt, params, cfg, cam.image_id, aux=state.aux, table=table,
-                                           out_obj=out_obj)
-        count_instances(scalars, opts.instance_capacity, out, out_obj)
-        wrt = [*leaves.values(), m2d_off, abs_dummy]
-        with span("backward"):
-            grads = torch.autograd.grad(loss / D if bands.group is not None else loss, wrt, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, wrt)]
-        # band shares -> the whole gradient (a band group only)
-        grads = bands.reduce_all(grads, "sum")
-        return scalars, out, dict(zip(leaves, grads[:-2])), grads[-2], grads[-1]
-
-    return step_around(loss_and_grads, cfg, table, opts, data_group)
+    return layout_train_step(cfg, table, opts, render, divisor=D, finish=finish, data_group=data_group)

@@ -22,9 +22,11 @@ step), so their cotangents are zero and the semantic rows keep their
 values.
 
 The step is loss_and_grads (render, losses, autograd) followed by
-apply_gradients (statistics, masks, learning rates, Adam), which the
-camera data parallel step (parallel/dp.py) and the tile-band step
-(parallel/tiles.py) share.
+apply_gradients (statistics, masks, learning rates, Adam), both built by
+layout_train_step, which the camera data parallel step (parallel/dp.py),
+the tile-band step (parallel/tiles.py) and the row-sharded step
+(parallel/gauss.py) share: a layout gives it only its render, its
+offset's rows, its loss divisor and its reductions of the gradients.
 """
 
 from __future__ import annotations
@@ -322,11 +324,10 @@ def take_draws(table: G.SceneTable, state: TrainState, cam, generator: Optional[
 def apply_gradients(cfg: Config, table: G.SceneTable, state: TrainState, cam, scalars: dict, out: dict,
                     g_params: Dict[str, torch.Tensor], g_m2d: torch.Tensor, g_abs: torch.Tensor,
                     data_group=None, row_group=None):
-    """The post-gradient half of a train step, which the single, camera
-    data parallel and tile-band steps share: the densification
-    statistics (while step < densify_until_iter), the per-row masks, the
-    learning rates, the pose correction's weight decay and the masked
-    Adam update. `out` holds the render's radii and overflow counters.
+    """The post-gradient half of every layout's train step
+    (layout_train_step): the densification statistics (while step <
+    densify_until_iter), the per-row masks, the learning rates, the pose
+    correction's weight decay and the masked Adam update. `out` holds the render's radii and overflow counters.
     With data_group (a parallel.comm.Group of cameras, one a rank), the
     statistics are per-camera norms summed over the group (the radius
     the max), the gradients and scalars are averaged, the overflow
@@ -376,15 +377,72 @@ def apply_gradients(cfg: Config, table: G.SceneTable, state: TrainState, cam, sc
     return new_state, scalars
 
 
-def step_around(loss_and_grads, cfg: Config, table: G.SceneTable, opts: RenderOptions, data_group=None,
-                row_group=None, model_id: Optional[torch.Tensor] = None):
-    """The train step around loss_and_grads(state, frame, gt, draws=):
-    step_fn(state, frame, gt, generator=None, *, draws=None) -> (new
-    state, {name: 0-dim tensor}): the draws (take_draws; with data_group
-    those of the rank's camera of the batch; with model_id the whole
-    table's flip), the render's gradients, the PSNR and apply_gradients
-    (row_group: see there)."""
+FULL_KEYS = ("rgb", "acc", "depth", "T")  # what the losses read of the full render
+OBJECT_KEYS = ("acc",)  # and of the object render
+
+
+def layout_train_step(cfg: Config, table: G.SceneTable, opts: RenderOptions, render, rows: Optional[int] = None,
+                      divisor: int = 1, finish=None, data_group=None, row_group=None,
+                      model_id: Optional[torch.Tensor] = None):
+    """The train step of a layout, make_train_step's contract, built from
+    what the layout changes:
+      render(params, aux, frame, step, keys, **kw) -> the frame's
+        render_frame dict, kw being render_frame's flip, sky_jitter,
+        mean2d_offset, absgrad_dummy, include_mask and compose_sky, and
+        keys the images that a join of bands must keep;
+      rows: the rows of the mean2d offset (default the table's C);
+      divisor: the loss is divided by it before the backward (a group's
+        size, for the gradient's calibration);
+      finish(g_params, g_m2d, g_abs, out) -> the same four: the layout's
+        reductions of the gradients and its cut of the output.
+    data_group and row_group: see apply_gradients; model_id: see
+    take_draws. step_fn.loss_and_grads(state, frame, gt, generator=None,
+    draws=None) -> (scalars, render output, {name: gradient of each
+    parameter}, gradient of the mean2d offset, of the AbsGS dummy); a
+    parameter the loss does not reach gets 0."""
+    o = cfg.optim
+    C = table.capacity
+    rows = C if rows is None else rows
     cameras, index = (1, 0) if data_group is None else (data_group.size, data_group.rank)
+    obj_mask = None
+    if o.lambda_reg > 0 and table.num_models > 1:
+        # on the card once, so that the object render copies nothing
+        obj_mask = torch.as_tensor(render_object_mask(table), device=table.start_frame.device)
+
+    def loss_and_grads(state: TrainState, frame: FrameInput, gt: GroundTruth,
+                       generator: Optional[torch.Generator] = None, draws: Optional[Draws] = None):
+        # full float32 products, as the JAX code's precision="highest"
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = state.aux.alive.device
+        leaves = {k: p.detach().requires_grad_(True) for k, p in flatten_params(state.params).items()}
+        params = unflatten_params(leaves, state.params)
+        m2d_off = torch.zeros((rows, 2), device=dev, requires_grad=True)
+        abs_dummy = torch.zeros((C, 2), device=dev, requires_grad=True)
+        if draws is None:
+            draws = take_draws(table, state, frame.cam, generator, opts, model_id=model_id)
+        out = render(params, state.aux, frame, state.step, FULL_KEYS, flip=draws.flip,
+                     sky_jitter=draws.sky_jitter, mean2d_offset=m2d_off, absgrad_dummy=abs_dummy)
+        out_obj = None
+        if obj_mask is not None and state.step >= o.densify_until_iter:
+            # the actors alone: the same flip, no sky, and no view-space
+            # offsets, so that densification sees only the full render
+            with span("object_render"):
+                out_obj = render(params, state.aux, frame, state.step, OBJECT_KEYS, flip=draws.flip,
+                                 include_mask=obj_mask, compose_sky=False)
+        with span("losses"):
+            loss, scalars = compute_losses(
+                out, gt, params, cfg, frame.cam.image_id, aux=state.aux, table=table, out_obj=out_obj
+            )
+        count_instances(scalars, opts.instance_capacity, out, out_obj)
+        wrt = [*leaves.values(), m2d_off, abs_dummy]
+        with span("backward"):
+            grads = torch.autograd.grad(loss if divisor == 1 else loss / divisor, wrt, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, wrt)]
+        g_params, g_m2d, g_abs = dict(zip(leaves, grads[:-2])), grads[-2], grads[-1]
+        if finish is not None:
+            g_params, g_m2d, g_abs, out = finish(g_params, g_m2d, g_abs, out)
+        return scalars, out, g_params, g_m2d, g_abs
 
     def step_fn(state: TrainState, frame: FrameInput, gt: GroundTruth,
                 generator: Optional[torch.Generator] = None, *, draws: Optional[Draws] = None):
@@ -414,54 +472,11 @@ def make_train_step(
     them; with neither, the step draws none (no flip, no jitter).
     data_group: camera data parallel over a parallel.comm.Group (see
     apply_gradients and parallel/dp.py)."""
-    o = cfg.optim
-    C = table.capacity
-    obj_mask = None
-    if o.lambda_reg > 0 and table.num_models > 1:
-        # on the card once, so that the object render copies nothing
-        obj_mask = torch.as_tensor(render_object_mask(table), device=table.start_frame.device)
 
-    def loss_and_grads(state: TrainState, frame: FrameInput, gt: GroundTruth,
-                       generator: Optional[torch.Generator] = None, draws: Optional[Draws] = None):
-        """Render, losses and gradients: (scalars, render output, {name:
-        gradient of each parameter}, gradient of the mean2d offset, of
-        the AbsGS dummy). A parameter the loss does not reach gets 0."""
-        # full float32 products, as the JAX code's precision="highest"
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        dev = state.aux.alive.device
-        leaves = {k: p.detach().requires_grad_(True) for k, p in flatten_params(state.params).items()}
-        params = unflatten_params(leaves, state.params)
-        m2d_off = torch.zeros((C, 2), device=dev, requires_grad=True)
-        abs_dummy = torch.zeros((C, 2), device=dev, requires_grad=True)
-        if draws is None:
-            draws = take_draws(table, state, frame.cam, generator, opts)
-        out = render_frame(
-            params, state.aux, table, pose_data, frame, state.step, opts=opts,
-            flip=draws.flip, sky_jitter=draws.sky_jitter,
-            mean2d_offset=m2d_off, absgrad_dummy=abs_dummy,
-        )
-        out_obj = None
-        if obj_mask is not None and state.step >= o.densify_until_iter:
-            # the actors alone: the same flip, no sky, and no view-space
-            # offsets, so that densification sees only the full render
-            with span("object_render"):
-                out_obj = render_frame(
-                    params, state.aux, table, pose_data, frame, state.step, opts=opts,
-                    flip=draws.flip, include_mask=obj_mask, compose_sky=False,
-                )
-        with span("losses"):
-            loss, scalars = compute_losses(
-                out, gt, params, cfg, frame.cam.image_id, aux=state.aux, table=table, out_obj=out_obj
-            )
-        count_instances(scalars, opts.instance_capacity, out, out_obj)
-        wrt = [*leaves.values(), m2d_off, abs_dummy]
-        with span("backward"):
-            grads = torch.autograd.grad(loss, wrt, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, wrt)]
-        return scalars, out, dict(zip(leaves, grads[:-2])), grads[-2], grads[-1]
+    def render(params, aux, frame, step, keys, **kw):
+        return render_frame(params, aux, table, pose_data, frame, step, opts=opts, **kw)
 
-    return step_around(loss_and_grads, cfg, table, opts, data_group)
+    return layout_train_step(cfg, table, opts, render, data_group=data_group)
 
 
 def _gaussian_adam(adam: AdamState) -> AdamState:
