@@ -19,7 +19,10 @@
    lanes that the blend splits into segments (pixels that stop in the first segment, in
    a later one and never) and on the bench frame's own inputs, where it
    also holds the blend's work list against its plain version and prints
-   the run lengths and where the forward's blocks spend their time; and
+   the run lengths and where the forward's blocks spend their time; the
+   row-masked Adam and the SH colour's two kernels (csrc/sh_color.cu,
+   forward and backward) at the garden's and cell 1's shapes, timed
+   beside their plain versions and bounds; and
    the whole serving path on a small scene against the CPU path;
 4. serves the bench scene (1600x1064, 220k background points grown x3 =
    661,248 rows, 4 actors, 1024 sky cubemap) through serve.render_views:
@@ -665,7 +668,7 @@ def main() -> int:
         built = _build.build(_build.ALL_SOURCES)
         probe_build.result()
         search_build.result()
-    log(f"[build] {time.perf_counter() - t0:.2f} s wall for the {len(_build.ALL_SOURCES)} sources (9 kernels) "
+    log(f"[build] {time.perf_counter() - t0:.2f} s wall for the {len(_build.ALL_SOURCES)} sources (11 kernels) "
         f"and the probe builds of {list(block_times.REGIONS)} and {list(search_times.SOURCES)}")
     for name, info in built.items():
         ptxas = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "Compiling" in ln]
@@ -699,6 +702,9 @@ def main() -> int:
 
     # ---- 3a, continued: row-masked Adam at the benchmark's leaf shapes ----
     adam_entry = adam_phase(dev)
+    torch.cuda.empty_cache()
+    # ---- 3a, continued: the SH colour's two kernels at the garden's and cell 1's shapes ----
+    sh_entry = sh_color_phase(dev)
     torch.cuda.empty_cache()
 
     # ---- 3b. the bench frame's own inputs ----
@@ -893,6 +899,11 @@ def main() -> int:
         ("adam", "street_gaussians_torch/csrc/adam.cu",
          "none: the JAX package's Adam (street_gaussians_tpu/optim/adam.py) is plain jnp, fused by XLA",
          t["launches"]["adam_update"], 0.0, *adam_entry[:4], {**train, **adam_entry[4]}),
+        ("sh_color", "street_gaussians_torch/csrc/sh_color.cu",
+         "none: the JAX package's SH colour (street_gaussians_tpu/models/renderer.py compose_frame, "
+         "ops/preprocess.py) is plain jnp, fused by XLA",
+         t["launches"]["sh_color"], sh_entry[4]["mipnerf360_garden"]["max_scaled_err"], *sh_entry[:4],
+         {**train, "bwd_launches": t["launches"]["sh_color_bwd"], **sh_entry[4]}),
         *table_kernels,
     ):
         if "train" in extra["path"]:
@@ -1037,6 +1048,179 @@ def adam_phase(dev) -> tuple:
         log(f"[kernel] adam {cell}: {ms:.4f} ms (plain {plain:.4f} ms), bound {bms:.4f} ms by {by} "
             f"({floats} floats in {len(params)} leaves, {nbytes} bytes); bit-equal to the plain version, 1 launch")
         del args, params, state, lr
+        torch.cuda.empty_cache()
+    g = out["mipnerf360_garden"]
+    return g["ms"], g["plain_ms"], None, (g["bound_ms"], g["bound_by"]), {
+        "mipnerf360_garden": g, "waymo_train_002": out["waymo_train_002"]}
+
+
+# the SH colour's shapes in the benchmark's configurations: rows
+# (capacity), K, F and the share of actor rows (compose_frame passes
+# t_row and is_actor for every table; the garden has no actors, cell 1
+# 6 actors of 8,192 rows)
+SH_CELLS = {
+    "mipnerf360_garden": (6_291_456, 16, 1, 0.0),
+    "waymo_train_002": (1_359_872, 4, 5, 6 * 8192 / 1_359_872),
+}
+# the kernel against the plain version, each output scaled by its
+# largest |value| (rows off the camera centre): the two sum a row's
+# <= 16 products and <= 5 Fourier terms in other orders, the kernel with
+# fused multiply-adds, a few float32 ulp of the largest term
+SH_ATOL_SCALED = 1e-5
+
+
+def sh_color_case(rows: int, K: int, F: int, actors, dev, seed: int = 0, offset: int = 0):
+    """(means3d, cam_center, feat_dc, feat_rest, t_row, is_actor) of a
+    seeded case for ops.sh_color: means 1-30 m around the camera, DC
+    N(0, 0.5), the rest N(0, 0.1); `actors` the share of actor rows
+    (their times in [0, 1]), or None for no t_row and is_actor (a single
+    cloud's call). Row 0 lies on the camera centre (the norm's 1e-12
+    clamp); row 1 is a background row whose colour is exactly 0 before
+    the clamp (its rest 0, C0 * DC = -0.5 in float32). offset: the
+    coefficient arrays start that many floats into their storage
+    (1: not 16-byte aligned). means3d, feat_dc and feat_rest are leaves
+    that require grad."""
+    from street_gaussians_torch.utils import sh as sh_utils
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def leaf(shape, scale):
+        n = int(np.prod(shape))
+        base = torch.zeros(n + offset, device=dev)
+        base[offset:] = torch.randn(n, generator=gen, device=dev) * scale
+        return base[offset:].view(shape)
+
+    center = torch.tensor([0.5, -1.5, 2.0], device=dev)
+    dirs = torch.randn((rows, 3), generator=gen, device=dev)
+    dist = 1.0 + 29.0 * torch.rand((rows, 1), generator=gen, device=dev)
+    means3d = center + dirs / dirs.norm(dim=-1, keepdim=True) * dist
+    feat_dc, feat_rest = leaf((rows, F, 3), 0.5), leaf((rows, K - 1, 3), 0.1)
+    c0 = np.float32(sh_utils.C0)
+    dc0 = np.float32(-0.5) / c0
+    for _ in range(64):  # the float32 whose product with C0 rounds to -0.5
+        p = np.float32(c0 * dc0)
+        if p == -0.5:
+            break
+        dc0 = np.nextafter(dc0, np.float32(-np.inf) if p > -0.5 else np.float32(np.inf))
+    if np.float32(c0 * dc0) != -0.5:
+        raise AssertionError("no float32 DC with C0 * DC = -0.5")
+    with torch.no_grad():
+        means3d[0] = center
+        feat_dc[1, 0] = float(dc0)
+        feat_rest[1] = 0.0
+    t_row = is_actor = None
+    if actors is not None:
+        t_row = torch.rand(rows, generator=gen, device=dev)
+        is_actor = torch.rand(rows, generator=gen, device=dev) < actors
+        is_actor[:2] = False
+    for t in (means3d, feat_dc, feat_rest):
+        t.requires_grad_(True)
+    return means3d, center, feat_dc, feat_rest, t_row, is_actor
+
+
+def check_sh_color(case, degs, what: str) -> float:
+    """ops.sh_color's kernels (one launch forward, one backward) against
+    its plain version on the card on one case: rgb and the gradients of
+    means3d, cam_center, feat_dc and feat_rest for a seeded cotangent,
+    within SH_ATOL_SCALED of each output's largest |value| (the camera
+    centre's row, ~1e12 times the others in means3d's gradient, against
+    its own); row 1's colour exactly 0; feat_rest's gradient exactly 0
+    in the bands above a row's degree. Returns the largest scaled
+    error."""
+    from street_gaussians_torch.ops import sh_color as shc
+
+    means3d, center, feat_dc, feat_rest, t_row, is_actor = case
+    center = center.detach().clone().requires_grad_(True)
+    leaves = (means3d, center, feat_dc, feat_rest)
+    cot = torch.randn(means3d.shape, generator=torch.Generator(device=means3d.device).manual_seed(1),
+                      device=means3d.device)
+    out = {}
+    for name, fn in (("kernel", shc.sh_color), ("plain", shc.sh_color_plain)):
+        launches = (shc.sh_color.launches, shc.sh_color.bwd_launches)
+        rgb = fn(means3d, center, feat_dc, feat_rest, t_row, is_actor, *degs)
+        grads = torch.autograd.grad(rgb, leaves, cot, allow_unused=True)
+        torch.cuda.synchronize()
+        moved = (shc.sh_color.launches - launches[0], shc.sh_color.bwd_launches - launches[1])
+        if moved != ((1, 1) if name == "kernel" else (0, 0)):
+            raise AssertionError(f"sh_color {what}: the {name} version launched {moved} kernels")
+        out[name] = [rgb.detach()] + [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
+    worst = 0.0
+    rows = torch.arange(means3d.shape[0], device=means3d.device) != 0
+    for i, name in enumerate(("rgb", "d_means3d", "d_cam_center", "d_feat_dc", "d_feat_rest")):
+        got, want = out["kernel"][i], out["plain"][i]
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"sh_color {what}: {name} of shape {tuple(got.shape)} or not finite")
+        if got.numel() == 0:  # feat_rest's at K = 1
+            continue
+        parts = [(got[rows], want[rows]), (got[~rows], want[~rows])] if got.shape[0] == rows.shape[0] else [(got, want)]
+        for g, w in parts:
+            scale = max(float(w.abs().max()), 1e-30)
+            err = float((g - w).abs().max()) / scale
+            worst = max(worst, err)
+            if err > SH_ATOL_SCALED:
+                raise AssertionError(f"sh_color {what}: {name} off by {err:.3e} of its largest |value|")
+    if float(out["kernel"][0][1].abs().max()) != 0.0 or float(out["plain"][0][1].abs().max()) != 0.0:
+        raise AssertionError(f"sh_color {what}: row 1's colour is not exactly 0")
+    K = feat_rest.shape[1] + 1
+    deg_row = torch.full((means3d.shape[0],), degs[0], device=means3d.device)
+    if is_actor is not None:
+        deg_row[is_actor] = degs[1]
+    band = torch.tensor([1 if k < 4 else 2 if k < 9 else 3 for k in range(1, K)], device=means3d.device)
+    masked = band[None, :] > deg_row[:, None]  # [C, K - 1]
+    if masked.any() and bool(out["kernel"][4][masked].ne(0).any()):
+        raise AssertionError(f"sh_color {what}: feat_rest's gradient is not 0 in a masked band")
+    log(f"[check] sh_color {what}: rgb and gradients within {worst:.2e} of each output's largest |value|; "
+        f"{int(masked.any(dim=1).sum())} rows with masked bands exactly 0; 1 launch each way")
+    return worst
+
+
+def sh_color_bytes(rows: int, K: int, F: int, actors: bool) -> tuple:
+    """(forward, backward) bytes: each input read and each output written
+    once (ops/sh_color.py's note)."""
+    row_in = 12 + 12 * F + 12 * (K - 1) + (5 if actors else 0)
+    return rows * (row_in + 12), rows * (row_in + 12 + 12 + 12 * F + 12 * (K - 1))
+
+
+def sh_color_phase(dev) -> tuple:
+    """Step 3a, continued: the SH colour's kernels at the garden's and
+    cell 1's shapes (SH_CELLS), held against the plain version
+    (check_sh_color at the full degree and one below it); the ms of the
+    forward and of forward + backward (torch.autograd.grad over the op),
+    the plain version's, and the bounds by bytes. Returns (ms, plain
+    ms, None, (bound ms, by), extra) of the garden's forward + backward
+    for the kernels line, extra holding the forward alone and cell 1's
+    numbers."""
+    from street_gaussians_torch.ops import sh_color as shc
+
+    out = {}
+    for cell, (rows, K, F, actors) in SH_CELLS.items():
+        case = sh_color_case(rows, K, F, actors, dev)
+        deg = math.isqrt(K) - 1
+        err = max(check_sh_color(case, (deg, deg), f"{cell} (K = {K}, F = {F})"),
+                  check_sh_color(case, (deg - 1, deg), f"{cell} (K = {K}, F = {F}, background at degree {deg - 1})"))
+        means3d, center, feat_dc, feat_rest, t_row, is_actor = case
+        cot = torch.randn(means3d.shape, device=dev)
+        timed = {}
+        for name, fn in (("kernel", shc.sh_color), ("plain", shc.sh_color_plain)):
+            def fwd(fn=fn):
+                with torch.no_grad():
+                    return fn(means3d, center, feat_dc, feat_rest, t_row, is_actor, deg, deg)
+
+            def both(fn=fn):
+                rgb = fn(means3d, center, feat_dc, feat_rest, t_row, is_actor, deg, deg)
+                return torch.autograd.grad(rgb, (means3d, feat_dc, feat_rest), cot)
+
+            reps = 20 if name == "kernel" else 5
+            timed[name] = (cuda_ms(fwd, reps), cuda_ms(both, reps))
+        fb, bb = sh_color_bytes(rows, K, F, actors is not None)
+        (fms, fby), (tms, tby) = bound(fb, 0), bound(fb + bb, 0)
+        out[cell] = {"fwd_ms": timed["kernel"][0], "ms": timed["kernel"][1], "plain_fwd_ms": timed["plain"][0],
+                     "plain_ms": timed["plain"][1], "bound_fwd_ms": fms, "bound_ms": tms, "bound_by": tby,
+                     "rows": rows, "K": K, "F": F, "bytes": fb + bb, "max_scaled_err": err}
+        log(f"[kernel] sh_color {cell}: forward {timed['kernel'][0]:.4f} ms (plain {timed['plain'][0]:.4f}, bound "
+            f"{fms:.4f} by {fby}), forward + backward {timed['kernel'][1]:.4f} ms (plain {timed['plain'][1]:.4f}, "
+            f"bound {tms:.4f} by {tby}); {rows} rows, K = {K}, F = {F}")
+        del case, means3d, feat_dc, feat_rest, t_row, is_actor, cot
         torch.cuda.empty_cache()
     g = out["mipnerf360_garden"]
     return g["ms"], g["plain_ms"], None, (g["bound_ms"], g["bound_by"]), {
@@ -2498,6 +2682,7 @@ def train_phase(dev) -> dict:
     from street_gaussians_torch import train
     from street_gaussians_torch.models import sky_cubemap
     from street_gaussians_torch.ops import fill, rasterize, segsum, tile_raster2
+    from street_gaussians_torch.ops import sh_color as shc
     from street_gaussians_torch.optim import adam
     from street_gaussians_torch.script import block_times, search_times
     from street_gaussians_torch.train_lib import Draws, flatten_params
@@ -2575,8 +2760,9 @@ def train_phase(dev) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for k in (fill.expand_instances, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd,
-              segsum.segment_rowsum, adam.adam_update):
+              segsum.segment_rowsum, adam.adam_update, shc.sh_color):
         k.launches = 0
+    shc.sh_color.bwd_launches = 0
     step_ms, records = [], []
     for i in range(TRAIN_STEPS):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2588,7 +2774,8 @@ def train_phase(dev) -> dict:
         records.append(sc)
     launches = {k.__name__: k.launches for k in (
         fill.expand_instances, tile_raster2.tile_blend_instances, tile_raster2.tile_blend_bwd,
-        segsum.segment_rowsum, adam.adam_update)}
+        segsum.segment_rowsum, adam.adam_update, shc.sh_color)}
+    launches["sh_color_bwd"] = shc.sh_color.bwd_launches
     peak = torch.cuda.max_memory_allocated(dev)
     for i, sc in enumerate(records):
         loss = float(sc["loss"])
@@ -2601,7 +2788,9 @@ def train_phase(dev) -> dict:
             raise AssertionError(f"non-finite parameter {k} after training")
     if (launches["tile_blend_bwd"] != TRAIN_STEPS or launches["tile_blend_instances"] != TRAIN_STEPS
             or launches["segment_rowsum"] < 2 * TRAIN_STEPS or launches["expand_instances"] < TRAIN_STEPS
-            or launches["adam_update"] != TRAIN_STEPS):
+            or launches["adam_update"] != TRAIN_STEPS
+            or launches["sh_color"] != launches["tile_blend_instances"]
+            or launches["sh_color_bwd"] != launches["tile_blend_bwd"]):
         raise AssertionError(f"train path launches {launches} for {TRAIN_STEPS} steps")
     log(f"[train] {TRAIN_STEPS} steps: mean {sum(step_ms) / TRAIN_STEPS:.3f} ms/step (min "
         f"{min(step_ms):.3f}, max {max(step_ms):.3f}); peak memory {peak / 2**30:.3f} GiB; "

@@ -42,7 +42,7 @@ EXTRA_FLAGS = {
 # every source under csrc/, for a caller that builds them all at once
 ALL_SOURCES = (
     "fill", "tile_blend", "tile_blend_bwd", "segsum",
-    "tile_blend_table", "tile_blend_table_bwd", "probe_blend", "adam",
+    "tile_blend_table", "tile_blend_table_bwd", "probe_blend", "adam", "sh_color",
 )
 
 _LIBS: Dict[tuple, ctypes.CDLL] = {}

@@ -29,6 +29,7 @@ from street_gaussians_torch.config import config_from_args, make_argparser
 def main(argv=None) -> str:
     from street_gaussians_torch import checkpoint as ckpt_lib
     from street_gaussians_torch.models.renderer import compose_frame
+    from street_gaussians_torch.ops.sh_color import sh_table
     from street_gaussians_torch.runner import (
         EVAL_STEP,
         build_initial_params,
@@ -69,7 +70,7 @@ def main(argv=None) -> str:
         host = lambda t: t.detach().cpu().numpy()  # noqa: E731
         alive = host(composed["visible"])
         xyz = host(composed["means3d"])[alive]
-        shs = host(composed["shs"])[alive]  # [N, K, 3]
+        shs = host(sh_table(*composed["sh"]))[alive]  # [N, K, 3]
         opacity = np.clip(host(torch.sigmoid(g.opacity_logit))[alive, 0], 1e-6, 1 - 1e-6)
         scale = host(g.log_scale)[alive]
         rot = host(composed["quats"])[alive]

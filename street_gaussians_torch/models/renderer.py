@@ -52,7 +52,7 @@ from street_gaussians_torch.models.corrections import (
 from street_gaussians_torch.models.sky_cubemap import SkyParams, render_sky
 from street_gaussians_torch.ops.preprocess import TILE, clip_screen_to_rows, preprocess_gaussians
 from street_gaussians_torch.ops.rasterize import RasterizeConfig, rasterize
-from street_gaussians_torch.utils import sh as sh_utils
+from street_gaussians_torch.ops.sh_color import ShInputs
 from street_gaussians_torch.utils.camera import Camera
 from street_gaussians_torch.utils.losses import jnp_maximum
 from street_gaussians_torch.utils.quaternion import (
@@ -183,9 +183,11 @@ def compose_frame(
     row_offset: Optional[int] = None,
 ):
     """World-space per-Gaussian attributes for one camera: a dict of
-    means3d, scales, quats, opacity, shs, semantic, normals, visible (all
-    [C, ...]; semantic [C, S] with opts.use_semantic and normals [C, 3]
-    with opts.render_normal, else None).
+    means3d, scales, quats, opacity, sh, semantic, normals, visible (all
+    [C, ...]; sh the SH colour's inputs, an ops.sh_color.ShInputs, whose
+    coefficient table ops.sh_color.sh_table builds; semantic [C, S] with
+    opts.use_semantic and normals [C, 3] with opts.render_normal, else
+    None).
     flip: optional [C] bool, the train-time symmetry flip (actor rows
     mirrored across the y axis of their box frame); train mode only.
     include_mask: optional [M] bool, the models to render (a tensor on
@@ -266,31 +268,16 @@ def compose_frame(
         means3d = torch.where(is_sky[:, None], xyz_sky, means3d)
         scales = torch.where(is_sky[:, None], torch.clamp(scales, max=table.sphere_radius), scales)
 
-    # 4D Fourier DC features
+    # the SH colour's inputs (ops/sh_color.py): an actor row's time for
+    # its Fourier DC, and the active degrees (per-model max degree + the
+    # global ramp); sh_color masks the bands and selects the DC a row
     t_norm = (frame - table.start_frame).to(torch.float32) / torch.clamp(
         (table.end_frame - table.start_frame).to(torch.float32), min=1.0
     )  # [M]
     t_row = (table.fourier_scale * t_norm)[mid]  # [C]
-    basis = sh_utils.idft_basis(t_row, table.fourier_dim)  # [C, Fdim]
-    # background rows use only coefficient 0
-    bkgd_basis = torch.zeros_like(basis)
-    bkgd_basis[:, 0] = 1.0
-    basis = torch.where(is_actor_row[:, None], basis, bkgd_basis)
-    dc = torch.einsum("cf,cfk->ck", basis, g.feat_dc)  # [C, 3]
-
-    # SH band masking: per-model max degree + the global ramp
-    max_deg = max(table.sh_degree_bkgd, table.sh_degree_obj)
-    active = G.active_sh_degree(step, max_deg)
-    deg_row = torch.where(
-        is_actor_row,
-        min(active, table.sh_degree_obj),
-        min(active, table.sh_degree_bkgd),
-    )  # [C]
-    K = (max_deg + 1) ** 2
-    band = torch.floor(torch.sqrt(torch.arange(1, K, dtype=torch.float32, device=dev))).to(torch.int64)
-    rest_mask = (band[None, :] <= deg_row[:, None]).to(torch.float32)  # [C, K-1]
-    rest = g.feat_rest * rest_mask[..., None]
-    shs = torch.cat([dc[:, None, :], rest], dim=1)  # [C, K, 3]
+    active = G.active_sh_degree(step, max(table.sh_degree_bkgd, table.sh_degree_obj))
+    sh = ShInputs(g.feat_dc, g.feat_rest, t_row, is_actor_row,
+                  min(active, table.sh_degree_bkgd), min(active, table.sh_degree_obj))
 
     # semantics: the background's first S columns (zero-padded), an
     # actor's one channel in its class_label column
@@ -325,7 +312,7 @@ def compose_frame(
         scales=scales,
         quats=quats,
         opacity=torch.sigmoid(g.opacity_logit)[:, 0],
-        shs=shs,
+        sh=sh,
         semantic=semantic,
         normals=normals,
         visible=visible,
@@ -383,13 +370,12 @@ def screen_space(
     block's rows)."""
     cam = frame_inp.cam
     composed = compose_frame(params, aux, table, pose_data, frame_inp, step, opts, flip, include_mask, row_offset)
-    max_deg = max(table.sh_degree_bkgd, table.sh_degree_obj)
     screen = preprocess_gaussians(
         means3d=composed["means3d"],
         scales=composed["scales"],
         quats=composed["quats"],
         opacities=composed["opacity"],
-        shs=composed["shs"],
+        shs=composed["sh"],
         cam_w2c=cam.w2c,
         cam_full_proj=cam.full_proj,
         cam_center=cam.cam_center,
@@ -399,7 +385,6 @@ def screen_space(
         focal_y=cam.focal_y,
         tan_fovx=cam.tan_fovx,
         tan_fovy=cam.tan_fovy,
-        sh_degree=max_deg,
         scale_modifier=opts.scaling_modifier,
         alive=composed["visible"],
         max_tiles_per_gaussian=opts.max_tiles_per_gaussian,

@@ -11,11 +11,11 @@ and the opacity-aware ellipse tile rect.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
-from street_gaussians_torch.utils import sh as sh_utils
+from street_gaussians_torch.ops.sh_color import ShInputs, inputs_from_table, sh_color
 from street_gaussians_torch.utils.trace import span
 
 TILE = 16  # pixels per tile side
@@ -121,7 +121,7 @@ def preprocess_gaussians(
     scales: torch.Tensor,
     quats: torch.Tensor,
     opacities: torch.Tensor,
-    shs: Optional[torch.Tensor],
+    shs: Union[torch.Tensor, ShInputs, None],
     cam_w2c: torch.Tensor,
     cam_full_proj: torch.Tensor,
     cam_center: torch.Tensor,
@@ -140,8 +140,10 @@ def preprocess_gaussians(
 ) -> GaussianScreenData:
     """Vectorized preprocess of N Gaussians for one camera.
 
-    shs: [N, K, 3] SH coefficients (band-major), or None when
-    colors_precomp [N, 3] is given. alive: optional [N] bool.
+    shs: the SH colour's inputs (ops.sh_color.ShInputs, compose_frame's),
+    or one cloud's [N, K, 3] coefficients (band-major) evaluated at
+    sh_degree, or None when colors_precomp [N, 3] is given. alive:
+    optional [N] bool.
     max_tiles_per_gaussian: clamps the tile rect around the mean."""
     n = means3d.shape[0]
     grid_x = (W + TILE - 1) // TILE
@@ -219,13 +221,9 @@ def preprocess_gaussians(
         valid = valid & alive
 
     if colors_precomp is None:
+        sh = shs if isinstance(shs, ShInputs) else inputs_from_table(shs, sh_degree)
         with span("sh"):
-            dirs = means3d - cam_center[None, :]
-            dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-12)
-            basis = sh_utils.sh_basis(sh_degree, dirs)  # [N, K']
-            k = basis.shape[-1]
-            rgb = torch.einsum("nk,nkc->nc", basis, shs[:, :k, :]) + 0.5
-            rgb = torch.clamp(rgb, min=0.0)
+            rgb = sh_color(means3d, cam_center, *sh)
     else:
         rgb = colors_precomp
 

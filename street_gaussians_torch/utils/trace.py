@@ -35,7 +35,8 @@ SYNC_PREFIX = "sync/"
 SPANS = {
     # a render (models/renderer.py, ops/rasterize.py)
     "screen_space": "compose_frame and preprocess_gaussians: the per-Gaussian half of a render",
-    "sh": "preprocess_gaussians' SH colour: the basis along the view directions and its product with the coefficients",
+    "sh": ("preprocess_gaussians' SH colour (ops.sh_color: the Fourier DC, the band mask, the basis along the view "
+           "directions and its product with the coefficients)"),
     "binning": "the (Gaussian, tile) instances, their sort and the tiles' runs (ops/binning.py, kernel 2.3)",
     "payload": "the payload rows gathered into instance blocks or the dense table",
     "tile_blend": "the blend forward (kernel 2.1, or 2.5 on the table layout)",
@@ -53,6 +54,7 @@ SPANS = {
     "payload_bwd": "the payload gather's gradient: the stable sort, the column gather and the row-sum (2.4)",
     "sky_bwd": "the sky lookup's gradient: the sort, the row-sum (2.4) and the tap-plane shifts",
     "rows_bwd": "the per-model rows' gradient (rows_from_models: slice sums or a one-hot product)",
+    "sh_bwd": "the SH colour's gradient (ops.sh_color's backward kernel on a card)",
     # the parallel modes
     "band_<d>": "tile-row band d of a tile-sharded train step (parallel/tiles.py)",
     "gather_rows": "the screen rows of every rank gathered in a gauss-sharded step (parallel/gauss.py)",

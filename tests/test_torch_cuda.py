@@ -6,6 +6,7 @@ is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import math
 import os
 
 import numpy as np
@@ -619,17 +620,20 @@ def test_static_sh3_step_syncs_lie_in_sync_spans(cuda_device):
     3 on a small static scene (benchmark/configs/mipnerf360_garden.json's
     garden at a toy size, built as the benchmark's cell builds it: one
     cloud, no actors, no sky): every host sync lies inside a `sync/`
-    span of its own thread, the `sh` span opens inside `screen_space`,
-    and utils.trace lists `sh` and `grad_allreduce`."""
+    span of its own thread, the `sh` span opens inside `screen_space`
+    and `sh_bwd` inside `backward`, the step launches the SH colour's
+    forward and backward kernels once each, and utils.trace lists `sh`,
+    `sh_bwd` and `grad_allreduce`."""
     import copy
     import json
 
     from benchmark.harness import orbit
     from benchmark.harness.orbit_scene import make_scene, make_truth, toy_config
+    from street_gaussians_torch.ops.sh_color import sh_color
     from street_gaussians_torch.train_lib import Draws, make_train_step
     from street_gaussians_torch.utils import trace
 
-    assert {"sh", "grad_allreduce"} <= set(trace.SPANS)
+    assert {"sh", "sh_bwd", "grad_allreduce"} <= set(trace.SPANS)
     with open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "benchmark", "configs",
                            "mipnerf360_garden.json")) as f:
         cfg = json.load(f)
@@ -643,10 +647,12 @@ def test_static_sh3_step_syncs_lie_in_sync_spans(cuda_device):
     state, sc = step_fn(prog.state, prog.frames[i], prog.truths[i], draws=draws)  # every shape warm
     assert int(sc["overflow"]) == 0
     torch.cuda.synchronize()
+    launches = (sh_color.launches, sh_color.bwd_launches)
     with trace.profiler(cuda_device) as prof:
         with torch.profiler.record_function("checked"):
             state, _ = step_fn(state, prog.frames[i], prog.truths[i], draws=draws)
         torch.cuda.synchronize()
+    assert (sh_color.launches - launches[0], sh_color.bwd_launches - launches[1]) == (1, 1)
     path = os.path.join(os.environ.get("TMPDIR", "/tmp"), f"static_sh3_trace_{os.getpid()}.json")
     prof.export_chrome_trace(path)
     ev = trace.load_events(path)
@@ -657,10 +663,12 @@ def test_static_sh3_step_syncs_lie_in_sync_spans(cuda_device):
     outside = [y for y in syncs if not any(s["tid"] == y["tid"] and s["ts"] <= y["ts"] <= s["ts"] + s["dur"]
                                            for s in spans)]
     assert syncs and not outside, (len(syncs), outside[:5])
-    ranges = {n: [e for e in trace.host_spans(ev, n) if e["name"] == n] for n in ("sh", "screen_space")}
-    assert len(ranges["sh"]) == 1 and any(s["ts"] <= ranges["sh"][0]["ts"] and
-                                          ranges["sh"][0]["ts"] + ranges["sh"][0]["dur"] <= s["ts"] + s["dur"]
-                                          for s in ranges["screen_space"])
+    ranges = {n: [e for e in trace.host_spans(ev, n) if e["name"] == n]
+              for n in ("sh", "screen_space", "sh_bwd", "backward")}
+    for inner, outer in (("sh", "screen_space"), ("sh_bwd", "backward")):
+        assert len(ranges[inner]) == 1 and any(s["ts"] <= ranges[inner][0]["ts"] and
+                                               ranges[inner][0]["ts"] + ranges[inner][0]["dur"] <= s["ts"] + s["dur"]
+                                               for s in ranges[outer]), inner
 
 
 # ---------------------------------------------------------------- row-masked Adam
@@ -868,6 +876,51 @@ def test_library_name_tracks_headers_and_variants():
     probe = ("-DSG_BLOCK_TIMES",)
     assert _build.nvcc_flags("tile_blend", probe)[-1] == "-DSG_BLOCK_TIMES"
     assert _build.library_path("tile_blend", probe) != _build.library_path("tile_blend")
+
+
+# ---------------------------------------------------------------- the SH colour
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4, 9, 16])
+@pytest.mark.parametrize("F", [1, 5])
+@pytest.mark.parametrize("actors", [None, 0.4])
+def test_sh_color_kernels_match_plain(cuda_device, K, F, actors):
+    """csrc/sh_color.cu (forward and backward, one launch each) against
+    ops.sh_color's plain version on 5,003 rows (not a multiple of the
+    kernel's 128-row block): rgb and the gradients of means3d,
+    cam_center, feat_dc and feat_rest from torch.autograd.grad, within
+    chip_smoke.SH_ATOL_SCALED of each output's largest |value| (the two
+    sum a row's terms in other orders, the kernel with fused
+    multiply-adds); at the full degree and with the background one
+    degree lower (masked bands, whose feat_rest gradient must be exactly
+    0); a row on the camera centre and one whose colour is exactly 0
+    before the clamp (chip_smoke.sh_color_case). Without actors no t_row
+    or is_actor (a single cloud's call); with them 40% actor rows and
+    the coefficient arrays 4 bytes off 16-byte alignment."""
+    from chip_smoke import check_sh_color, sh_color_case
+
+    case = sh_color_case(5003, K, F, actors, cuda_device, seed=K * 10 + F, offset=int(actors is not None))
+    deg = math.isqrt(K) - 1
+    for degs in {(deg, deg), (max(deg - 1, 0), deg)}:
+        check_sh_color(case, degs, f"K = {K}, F = {F}, actors {actors}, degrees {degs}")
+
+
+@pytest.mark.cuda
+def test_sh_color_kernel_rejects_what_it_does_not_take(cuda_device):
+    """A CUDA input the kernel does not take raises (no fallback):
+    float64 coefficients, 25 coefficients (degree 4), a float is_actor,
+    the camera centre on the host."""
+    from chip_smoke import sh_color_case
+    from street_gaussians_torch.ops import sh_color as shc
+
+    means3d, center, feat_dc, feat_rest, t_row, is_actor = sh_color_case(300, 16, 5, 0.4, cuda_device)
+    for bad in ((means3d, center, feat_dc.double(), feat_rest, t_row, is_actor),
+                (means3d, center, feat_dc, torch.zeros(300, 24, 3, device=cuda_device), t_row, is_actor),
+                (means3d, center, feat_dc, feat_rest, t_row, is_actor.float()),
+                (means3d, center.cpu(), feat_dc, feat_rest, t_row, is_actor)):
+        with pytest.raises(ValueError):
+            shc.sh_color(*bad, 3, 3)
 
 
 # ---------------------------------------------------------------- tile bands and camera ranks

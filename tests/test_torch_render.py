@@ -28,6 +28,7 @@ from street_gaussians_torch.convert import frame_from_numpy, scene_from_numpy
 from street_gaussians_torch.data import synthetic as tsyn
 from street_gaussians_torch.models import renderer as trend
 from street_gaussians_torch.models.sky_cubemap import build_sky_table
+from street_gaussians_torch.ops.sh_color import sh_table
 from street_gaussians_torch.utils import trace
 from street_gaussians_tpu.data.synthetic import make_synthetic_scene
 from street_gaussians_tpu.models import renderer as jrend
@@ -178,6 +179,8 @@ def test_compose_with_corrections_and_sky_model_matches_jax():
     p, aux, table, pose, f = carry(scene, params, frame)
     assert table.sky_model == len(table.names) - 1
     got = trend.compose_frame(p, aux, table, pose, f, 2500, opts=trend.RenderOptions(mode="eval"))
+    # the port's compose hands the SH colour its inputs; their table is the JAX package's shs
+    got["shs"] = sh_table(*got["sh"])
     for k in ("means3d", "scales", "quats", "opacity", "shs", "visible"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), err_msg=k, **TOL)
     rgb = rng.uniform(0, 1, (8, 12, 3)).astype(np.float32)
